@@ -10,12 +10,16 @@ and prints no result):
    limit as ``nvidia-smi`` reports them, and keeps fp32 matmuls in fp32;
 2. build: compiles the flash-attention kernels from ``dlrover_tpu_torch/ops/
    csrc`` with ``nvcc`` (first use) and prints the build seconds;
-3. kernels: holds each of the three kernels against its plain PyTorch
-   version on the same bf16 inputs at the training shape (B=8, T=1024,
-   H=12, D=64, causal) and at ragged shapes (T=1000; D=128 non-causal at
-   batch 1, D=64 causal),
-   and times kernel, plain version and ``scaled_dot_product_attention``
-   (the yardstick, never called by the port) with CUDA events;
+3. kernels: prints each kernel's registers and spills from the ptxas log
+   and its HGMMA (wgmma) and UTMALDG (TMA load) counts from ``cuobjdump
+   --dump-sass`` of the built library, and fails if the forward or dK/dV
+   kernel issues no wgmma; then holds each of the three kernels against its
+   plain PyTorch version, run at the kernel's own tile sizes
+   (``kernel_tiles``), on the same bf16 inputs at the training shape (B=8,
+   T=1024, H=12, D=64, causal) and at ragged shapes (T=1000; D=128
+   non-causal at batch 1, D=64 causal; causal q_len 384 < kv_len 1000), and
+   times kernel, plain version and ``scaled_dot_product_attention`` (the
+   yardstick, never called by the port) with CUDA events;
 4. main path: GPT-2 small at full width (flash attention, remat, seq
    1024) takes a few training steps at batch 8 on seeded random tokens
    through ``init_train_state`` / ``build_train_step``; the losses must be
@@ -30,6 +34,8 @@ and power limit, and ``{"ok": true, "device": {...}}`` as the last line.
 import dataclasses
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -40,18 +46,23 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 MAIN_SHAPE = dict(B=8, T=1024, H=12, D=64, causal=True)
-# ragged edges (T % 64 != 0), head_dim 128, batch 1, and causal ragged tiles
+# ragged edges (T % 128 != 0), head_dim 128, batch 1, causal ragged tiles, and
+# causal q_len < kv_len, where the end-aligned diagonal crosses 128-row tiles
+# off their corners
 RAGGED_SHAPES = [dict(B=1, T=1000, H=4, D=128, causal=False),
-                 dict(B=2, T=1000, H=2, D=64, causal=True)]
+                 dict(B=2, T=1000, H=2, D=64, causal=True),
+                 dict(B=2, Tq=384, Tkv=1000, H=2, D=64, causal=True)]
+# kernels rewritten for Hopper's wgmma and TMA: their SASS must hold HGMMA
+WGMMA_KERNELS = ("fwd", "bwd_dkdv")
 SOURCE = "dlrover_tpu_torch/ops/csrc/flash_attention.cu"
 REPLACES = {
     "fwd": "dlrover_tpu/ops/flash_attention.py:71",
     "bwd_dkdv": "dlrover_tpu/ops/flash_attention.py:230",
     "bwd_dq": "dlrover_tpu/ops/flash_attention.py:306",
 }
-# Kernel vs plain version, same bf16 inputs, plain at the kernels' 64x64
-# tiles: sums run in another order and p is rounded to bf16 at other points,
-# so a bf16 output may differ by one rounding step at its largest magnitude
+# Kernel vs plain version, same bf16 inputs, plain at the kernel's own tiles:
+# sums run in another order and p is rounded to bf16 at other points, so a
+# bf16 output may differ by one rounding step at its largest magnitude
 # (2**-7 relative), and never by more than 2e-2 below magnitude 2.56.
 LSE_TOL = 1e-3
 
@@ -120,18 +131,81 @@ def bound_ms(nbytes, flops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+KERNEL_SYMBOLS = {"fwd": "flash_fwd_kernel", "bwd_dkdv": "flash_bwd_dkdv_kernel",
+                  "bwd_dq": "flash_bwd_dq_kernel"}
+
+
+def binary_report(build):
+    """Per kernel instance ``(name, head_dim)``: registers and spill bytes
+    from the ptxas log kept beside the library, and the HGMMA (wgmma) and
+    UTMALDG (TMA load) instructions in its SASS (``cuobjdump --dump-sass``).
+    Raises if a kernel rewritten for wgmma issues none."""
+
+    def instance(symbol):
+        for name, kernel in KERNEL_SYMBOLS.items():
+            m = re.search(kernel + r"ILi(\d+)E", symbol)
+            if m:
+                return name, int(m.group(1))
+        return None
+
+    lib = build.library_path("flash_attention")
+    report, cur = {}, None
+    with open(lib[: -len(".so")] + ".log") as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = instance(m.group(1))
+                if cur:
+                    report[cur] = dict(registers=None, spill_stores=0, spill_loads=0,
+                                       hgmma=0, utmaldg=0)
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                report[cur]["spill_stores"] = int(m.group(1))
+                report[cur]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                report[cur]["registers"] = int(m.group(1))
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", lib], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    cur = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = instance(m.group(1))
+        elif cur in report:
+            report[cur]["hgmma"] += "HGMMA" in line
+            report[cur]["utmaldg"] += "UTMALDG" in line
+    for (name, d), r in sorted(report.items()):
+        log(f"  {name:9s} D={d:3d}: {r['registers']} registers at entry, spills "
+            f"{r['spill_stores']} B stored / {r['spill_loads']} B loaded, "
+            f"HGMMA {r['hgmma']}, UTMALDG {r['utmaldg']}")
+    for name in KERNEL_SYMBOLS:
+        for d in (64, 128):
+            if (name, d) not in report:
+                raise AssertionError(f"no ptxas entry for {name} D={d}")
+            if name in WGMMA_KERNELS and report[(name, d)]["hgmma"] == 0:
+                raise AssertionError(f"{name} D={d} issues no wgmma (HGMMA) in its SASS")
+    return report
+
+
 def kernel_phase(fa, shape, gen, timed):
     """Kernels vs plain versions at one shape. Returns per-kernel checks and,
     when ``timed``, the timings."""
     import torch
     import torch.nn.functional as F
 
-    B, T, H, D, causal = (shape[k] for k in ("B", "T", "H", "D", "causal"))
+    B, H, D, causal = (shape[k] for k in ("B", "H", "D", "causal"))
+    t_q, t_kv = shape.get("Tq", shape.get("T")), shape.get("Tkv", shape.get("T"))
     dev = "cuda"
-    q, k, v, do = (
-        torch.randn((B, T, H, D), device=dev, generator=gen).to(torch.bfloat16)
-        for _ in range(4)
-    )
+
+    def rand(t):
+        return torch.randn((B, t, H, D), device=dev, generator=gen).to(torch.bfloat16)
+
+    q, k, v, do = rand(t_q), rand(t_kv), rand(t_kv), rand(t_q)
     scale = 1.0 / math.sqrt(D)
     out, lse = fa.flash_fwd_cuda(q, k, v, scale, causal)
     delta = fa.delta_bh(do, out)
@@ -142,9 +216,10 @@ def kernel_phase(fa, shape, gen, timed):
 
     b3 = fa._to_bht
     plain_args = (b3(q), b3(k), b3(v), b3(do), lse, delta, scale, causal)
-    out3, lse3 = fa.flash_fwd_plain(b3(q), b3(k), b3(v), scale, causal, 64, 64)
-    dk3, dv3 = fa.flash_bwd_dkdv_plain(*plain_args, 64, 64)
-    dq3 = fa.flash_bwd_dq_plain(*plain_args, 64, 64)
+    out3, lse3 = fa.flash_fwd_plain(b3(q), b3(k), b3(v), scale, causal,
+                                    *fa.kernel_tiles("fwd", D))
+    dk3, dv3 = fa.flash_bwd_dkdv_plain(*plain_args, *fa.kernel_tiles("bwd_dkdv", D))
+    dq3 = fa.flash_bwd_dq_plain(*plain_args, *fa.kernel_tiles("bwd_dq", D))
 
     def err(a, ref):
         return float((a.float() - ref.float()).abs().max())
@@ -298,6 +373,7 @@ def main() -> int:
     fa._lib()
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.1f} s ({_build.library_path('flash_attention')})")
+    binary = binary_report(_build)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     log(f"kernels at {MAIN_SHAPE}")
@@ -328,6 +404,10 @@ def main() -> int:
             "library_ms": times[name]["library_ms"],
             "library_call": times[name]["library_call"],
             "shape": shape,
+            # the D=64 instance the main path runs; registers at entry (the
+            # wgmma kernels' consumers raise theirs with setmaxnreg)
+            **{key: binary[(name, shape["D"])][key]
+               for key in ("registers", "spill_stores", "hgmma", "utmaldg")},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

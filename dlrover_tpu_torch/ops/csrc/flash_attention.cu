@@ -17,19 +17,9 @@
 // 1), so no transpose copy is made; O, dQ, dK and dV are written as contiguous
 // [B, T, H, D]; lse and delta are contiguous [B*H, q_len] fp32.
 //
-// Design. The TPU kernels carry their accumulators across a sequential grid axis;
-// here that axis is a loop inside one thread block:
-//   forward: one block per (64-row Q tile, batch*head), looping over K tiles up to
-//            the causal limit;
-//   dK/dV:   one block per (64-row K tile, batch*head), looping over Q tiles from
-//            the causal start;
-//   dQ:      one block per (64-row Q tile, batch*head), looping over K tiles.
-// A block is 4 warps; each warp owns 16 rows of the block's tile. Operand tiles are
-// staged in shared memory, products run on the tensor cores through nvcuda::wmma
-// 16x16x16 bf16 fragments with fp32 accumulators, and the softmax and gradient
-// algebra run in fp32 on the rows a warp owns (shared-memory score tiles). The
-// 64x64 tiles fit Hopper's shared memory; the Pallas kernels' 1024x1024 defaults
-// only keep their meaning for the plain PyTorch versions.
+// The TPU kernels carry their accumulators across a sequential grid axis; here that
+// axis is a loop inside one thread block, and the causal run condition of the
+// Pallas kernels is the loop's bound, so tiles right of the diagonal cost nothing.
 //
 // Bounds at the training shape (B=8, T=1024, H=12, D=64, bf16, causal) on an H100
 // SXM (3.35 TB/s, 989 TFLOP/s dense bf16), counting each input read once and each
@@ -38,29 +28,461 @@
 //   dK/dV:   ~76 MB -> ~23 us;  ~25.8 GFLOP -> ~26 us.   Bound by operations.
 //   dQ:      ~63 MB -> ~19 us;  ~19.3 GFLOP -> ~19.5 us. Bound by operations.
 // All three sit near the ridge, so a kernel must both keep the score matrix out of
-// device memory and keep the tensor cores fed. What this design does: the online
-// softmax keeps S and P on chip (the [T, T] matrix never reaches device memory);
-// the causal loop bounds skip tiles right of the diagonal (about half the work);
-// the heaviest Q tiles are scheduled first so the tail of the grid is short; and
-// every product is a tensor-core product. What it leaves for later: wmma lowers
-// to mma.sync, well below the wgmma rate; loads are synchronous (no TMA or
-// cp.async pipeline), and scores round-trip through shared memory.
+// device memory and keep the tensor cores fed.
+//
+// Forward and dK/dV: warp-specialised wgmma kernels (hopper.cuh has the blocks).
+// A block is three warpgroups. Warpgroups 0 and 1 consume: each owns 64 rows of
+// the block's resident tile (query rows in the forward, keys in dK/dV), issues its
+// products with wgmma and keeps its scores and accumulators in registers for the
+// whole loop; they take 232 registers a thread with setmaxnreg. Warpgroup 2
+// produces: it drops to 40 registers and one of its threads streams the other
+// operand's tiles in by TMA (128-byte swizzle, straight from the strided
+// [B, T, H, D] tensors) through a ring of full/empty mbarriers, so the next tile's
+// copy overlaps this tile's products. The resident tile comes in once, by TMA too.
+//   forward: S = Q.K^T (both operands in shared memory) -> online softmax on the
+//     accumulator layout (quad shuffles, exp2 with scale*log2(e) folded in, masks
+//     only on tiles that cross the diagonal or the ragged end) -> P as bf16
+//     registers -> O += P.V (P the register operand, V read transposed). The
+//     block is persistent, one per SM, and walks 128-row Q tiles longest first,
+//     so the next tile's Q and K/V loads overlap this one's last products and
+//     epilogue (10% faster than a block per tile at the training shape on the
+//     H100). Issuing tile j+1's scores before tile j's P.V, to overlap the
+//     softmax with the tensor cores inside a warpgroup, measured slower there:
+//     the two consumer warpgroups already interleave.
+//   dK/dV: S^T = K.Q^T and dP^T = V.dO^T -> P^T and dS^T in registers, with lse
+//     and delta per query column -> dV += P^T.dO and dK += dS^T.Q. One block per
+//     128-key tile, the tiles with the most causal rows first.
+// No fp32 score or accumulator tile touches shared memory.
+//
+// dQ: the first port's design, not yet redesigned. One block of 4 warps per 64-row
+// Q tile; each warp owns 16 rows; products through nvcuda::wmma 16x16x16 fragments
+// (mma.sync) with operands staged in shared memory by synchronous loads, and the
+// dS algebra on fp32 score tiles in shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 using namespace nvcuda;
+using namespace hopper;
 typedef __nv_bfloat16 bf16;
+
+constexpr float NEG_INF = -1e30f;  // the Pallas kernels' finite mask value
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+// flash_error_string's code for a tensor map the driver refused
+constexpr int TENSOR_MAP_ERROR = 10000;
+
+struct Layout {  // element strides of a [B, T, H, D] tensor whose D stride is 1
+  int64_t b, t, h;
+};
+
+__device__ __forceinline__ int64_t out_row(int b, int t, int h, int T, int H, int D) {
+  return ((static_cast<int64_t>(b) * T + t) * H + h) * D;
+}
+
+// Number of K tiles of bn keys a Q tile of bm rows starting at q0 visits: a K tile
+// strictly right of the tile's last row is skipped, as in the Pallas kernels.
+__device__ __forceinline__ int k_tiles(int q0, int bm, int bn, int q_len, int kv_len,
+                                       int causal) {
+  int n = (kv_len + bn - 1) / bn;
+  if (causal) {
+    const int last = q0 + bm - 1 + kv_len - q_len;
+    n = min(n, last < 0 ? 0 : last / bn + 1);
+  }
+  return n;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ uint32_t align1024(uint32_t a) { return (a + 1023) & ~1023u; }
+
+// Rows of a warpgroup's [64, D] accumulator to a contiguous [B, T, H, D] bf16
+// output, each multiplied by its row's factor; rows at or past n_rows are dropped.
+template <int D>
+__device__ __forceinline__ void store_acc(const float (&acc)[D / 2], bf16* out, int b, int h,
+                                          int H, int n_rows, int row_a, float f0, float f1) {
+  const int col0 = (threadIdx.x % 4) * 2;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int t = row_a + 8 * half;
+    if (t >= n_rows) continue;
+    const float f = half ? f1 : f0;
+    bf16* dst = out + out_row(b, t, h, n_rows, H, D) + col0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * half] * f, acc[4 * j + 2 * half + 1] * f);
+  }
+}
+
+constexpr int WS_THREADS = 384;   // two consumer warpgroups and one producer warpgroup
+constexpr int CONSUMER_WARPS = 8;
+constexpr int PRODUCER_THREAD = 256;
+constexpr int CONSUMER_REGS = 232;  // 2 x 128 x 232 + 128 x 40 <= 65536
+constexpr int PRODUCER_REGS = 40;
+
+// ---- forward -------------------------------------------------------------------
+
+template <int D>
+struct Fwd {
+  static constexpr int BM = 128;  // query rows per block, 64 per consumer warpgroup
+  static constexpr int BN = 128;  // keys per streamed tile
+  static constexpr int STAGES = D == 64 ? 3 : 2;  // as many as shared memory holds
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int KV_BYTES = BN * D * 2;  // one K or V tile
+  static constexpr int K_OFF = Q_BYTES;        // stage s: K, then V
+  static constexpr int BAR_OFF = K_OFF + STAGES * 2 * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 * (2 + 2 * STAGES) + 1024;  // + alignment slack
+};
+
+// Work item w of a persistent block: Q tiles in order of decreasing causal
+// length (the longest rows first, so the grid's tail is short), then (b, h).
+struct FwdWork {
+  int q0, bh, b, h;
+  __device__ FwdWork(int w, int BH, int H, int n_qt, int bm) {
+    bh = w % BH;
+    q0 = (n_qt - 1 - w / BH) * bm;
+    b = bh / H;
+    h = bh % H;
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int BH, int H, int q_len, int kv_len, float scale_log2,
+                 int causal) {
+  typedef Fwd<D> C;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = align1024(smem_u32(smem));
+  const uint32_t sQ = base, bar = base + C::BAR_OFF;
+  const uint32_t q_full = bar, q_empty = bar + 8;
+  auto full = [&](int s) { return bar + 8 * (2 + s); };
+  auto empty = [&](int s) { return bar + 8 * (2 + C::STAGES + s); };
+  auto stage_k = [&](int s) { return base + C::K_OFF + s * 2 * C::KV_BYTES; };
+
+  const int n_qt = (q_len + C::BM - 1) / C::BM, n_work = n_qt * BH, off = kv_len - q_len;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, CONSUMER_WARPS);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), CONSUMER_WARPS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // The block walks work items w = blockIdx.x, + gridDim.x, ...; the K/V ring's
+  // counter g runs on across them, so the next item's loads start while the
+  // consumers still finish this one.
+  if (threadIdx.x >= PRODUCER_THREAD) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == PRODUCER_THREAD) {
+      int g = 0, item = 0;
+      for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++item) {
+        const FwdWork it(w, BH, H, n_qt, C::BM);
+        mbar_wait(q_empty, (item & 1) ^ 1);
+        mbar_arrive_expect_tx(q_full, C::Q_BYTES);
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(sQ + c * C::BM * 128, &tm_q, q_full, 64 * c, it.q0, it.h, it.b);
+        const int n_kt = k_tiles(it.q0, C::BM, C::BN, q_len, kv_len, causal);
+        for (int kt = 0; kt < n_kt; ++kt, ++g) {
+          const int s = g % C::STAGES;
+          mbar_wait(empty(s), ((g / C::STAGES) & 1) ^ 1);
+          mbar_arrive_expect_tx(full(s), 2 * C::KV_BYTES);
+          const uint32_t sK = stage_k(s), sV = sK + C::KV_BYTES;
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load_4d(sK + c * C::BN * 128, &tm_k, full(s), 64 * c, kt * C::BN, it.h, it.b);
+            tma_load_4d(sV + c * C::BN * 128, &tm_v, full(s), 64 * c, kt * C::BN, it.h, it.b);
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+    const int row_a = wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;  // and row_a + 8
+    const int col0 = (lane % 4) * 2;
+    const uint32_t sQw = sQ + wg * 64 * 128;
+    float o_acc[D / 2], s_acc[C::BN / 2];
+
+    int g = 0, item = 0;
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++item) {
+      const FwdWork it(w, BH, H, n_qt, C::BM);
+      const int q0 = it.q0, qr0 = q0 + wg * 64;  // the warpgroup's first query row
+      const int n_kt = k_tiles(q0, C::BM, C::BN, q_len, kv_len, causal);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+      float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // l: this thread's partial sums
+
+      mbar_wait(q_full, item & 1);
+      for (int kt = 0; kt < n_kt; ++kt, ++g) {
+        const int s = g % C::STAGES, k0 = kt * C::BN;
+        mbar_wait(full(s), (g / C::STAGES) & 1);
+
+        fence_regs(s_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < D / 16; ++k)
+          Wgmma<C::BN>::ss(s_acc, desc_k_major(sQw, C::BM, k),
+                           desc_k_major(stage_k(s), C::BN, k), k > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s_acc);
+
+        // p = 2^(s * scale * log2(e) - m), m the running row maximum in those units.
+        // Only a tile that crosses the diagonal or kv_len is scaled and masked
+        // first; any other is exponentiated from the raw scores by one fma (scale
+        // > 0, so the raw maximum scales to the scaled one).
+        const bool need_mask = k0 + C::BN > kv_len || (causal && k0 + C::BN - 1 > qr0 + off);
+        if (need_mask) {
+#pragma unroll
+          for (int i = 0; i < C::BN / 2; ++i) {
+            const int ki = k0 + 8 * (i / 4) + col0 + (i & 1);
+            const int qi = q0 + row_a + 8 * ((i / 2) & 1);
+            const bool keep = ki < kv_len && (!causal || ki <= qi + off);
+            s_acc[i] = keep ? s_acc[i] * scale_log2 : NEG_INF;
+          }
+        }
+        const float c = need_mask ? 1.f : scale_log2;
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < C::BN / 2; ++i) mx[(i / 2) & 1] = fmaxf(mx[(i / 2) & 1], s_acc[i]);
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(m[r], quad_max(mx[r]) * c);
+          alpha[r] = exp2_approx(m[r] - mx[r]);
+          m[r] = mx[r];
+          l[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int i = 0; i < C::BN / 2; ++i) {
+          const float p = exp2_approx(fmaf(s_acc[i], c, -mx[(i / 2) & 1]));
+          l[(i / 2) & 1] += p;
+          s_acc[i] = p;
+        }
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o_acc[i] *= alpha[(i / 2) & 1];
+
+        fence_regs(o_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < C::BN / 16; ++k) {
+          uint32_t a[4];
+          acc_to_a(s_acc, k, a);
+          Wgmma<D>::rs(o_acc, a, desc_mn_major(stage_k(s) + C::KV_BYTES, C::BN, k), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o_acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(s));
+      }
+      __syncwarp();  // every score product has read Q: the producer may load the next
+      if (lane == 0) mbar_arrive(q_empty);
+
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float l_row = quad_sum(l[r]);
+        const float l_safe = l_row == 0.f ? 1.f : l_row;
+        inv[r] = 1.f / l_safe;
+        const int qi = q0 + row_a + 8 * r;
+        // m is in log2 units; the sentinel of a row that saw no key stays -1e30
+        if (lane % 4 == 0 && qi < q_len)
+          lse[static_cast<int64_t>(it.bh) * q_len + qi] =
+              (m[r] == NEG_INF ? NEG_INF : m[r] * LN2) + logf(l_safe);
+      }
+      store_acc<D>(o_acc, o, it.b, it.h, H, q_len, q0 + row_a, inv[0], inv[1]);
+    }
+  }
+}
+
+// ---- dK/dV ---------------------------------------------------------------------
+
+template <int D>
+struct Dkdv {
+  static constexpr int BK = 128;               // keys per block, 64 per consumer warpgroup
+  static constexpr int BQ = D == 64 ? 64 : 32;  // query rows per streamed tile (registers)
+  static constexpr int STAGES = 3;
+  static constexpr int KV_BYTES = BK * D * 2;  // the K or the V tile
+  static constexpr int T_BYTES = BQ * D * 2;   // one streamed Q or dO tile
+  static constexpr int STAGE_OFF = 2 * KV_BYTES;  // stage s: Q, then dO
+  static constexpr int VEC_OFF = STAGE_OFF + STAGES * 2 * T_BYTES;  // stage s: lse*log2e, delta
+  static constexpr int BAR_OFF = VEC_OFF + STAGES * 2 * BQ * 4;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int H, int q_len, int kv_len, float scale,
+                      float scale_log2, int causal) {
+  typedef Dkdv<D> C;
+  extern __shared__ unsigned char smem[];
+  const uint32_t raw = smem_u32(smem), base = align1024(raw);
+  float* vec = reinterpret_cast<float*>(smem + (base - raw) + C::VEC_OFF);
+  const uint32_t sK = base, sV = base + C::KV_BYTES, bar_kv = base + C::BAR_OFF;
+  auto full = [&](int s) { return bar_kv + 8 * (1 + s); };
+  auto empty = [&](int s) { return bar_kv + 8 * (1 + C::STAGES + s); };
+  auto stage_q = [&](int s) { return base + C::STAGE_OFF + s * 2 * C::T_BYTES; };
+
+  // blocks start in order of x, then y: the K tiles with the most causal rows first
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * C::BK, off = kv_len - q_len;
+  // First Q tile with a row that may see this K tile (the Pallas run condition).
+  const int n_qt = (q_len + C::BQ - 1) / C::BQ;
+  int qt_begin = 0;
+  if (causal) {
+    const int first = k0 - off - (C::BQ - 1);
+    qt_begin = first <= 0 ? 0 : (first + C::BQ - 1) / C::BQ;
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), CONSUMER_WARPS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= PRODUCER_THREAD) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x < PRODUCER_THREAD + 32) {  // one warp: TMA from lane 0, lse/delta from all
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(bar_kv, 2 * C::KV_BYTES);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(sK + c * C::BK * 128, &tm_k, bar_kv, 64 * c, k0, h, b);
+          tma_load_4d(sV + c * C::BK * 128, &tm_v, bar_kv, 64 * c, k0, h, b);
+        }
+      }
+      const float* lse_bh = lse + static_cast<int64_t>(bh) * q_len;
+      const float* delta_bh = delta + static_cast<int64_t>(bh) * q_len;
+      for (int qt = qt_begin; qt < n_qt; ++qt) {
+        const int it = qt - qt_begin, s = it % C::STAGES, q0 = qt * C::BQ;
+        mbar_wait(empty(s), ((it / C::STAGES) & 1) ^ 1);
+        float* v = vec + s * 2 * C::BQ;
+        for (int i = lane; i < C::BQ; i += 32) {
+          const bool in = q0 + i < q_len;
+          v[i] = in ? lse_bh[q0 + i] * LOG2E : 0.f;
+          v[C::BQ + i] = in ? delta_bh[q0 + i] : 0.f;
+        }
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full(s), 2 * C::T_BYTES);
+          const uint32_t sQ = stage_q(s), sdO = sQ + C::T_BYTES;
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load_4d(sQ + c * C::BQ * 128, &tm_q, full(s), 64 * c, q0, h, b);
+            tma_load_4d(sdO + c * C::BQ * 128, &tm_do, full(s), 64 * c, q0, h, b);
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+    const int row_a = wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;  // and row_a + 8
+    const int col0 = (lane % 4) * 2;
+    const int kw0 = k0 + wg * 64;  // the warpgroup's first key
+    const uint32_t sKw = sK + wg * 64 * 128, sVw = sV + wg * 64 * 128;
+
+    float dk_acc[D / 2], dv_acc[D / 2], st[C::BQ / 2], dpt[C::BQ / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    mbar_wait(bar_kv, 0);
+    for (int qt = qt_begin; qt < n_qt; ++qt) {
+      const int it = qt - qt_begin, s = it % C::STAGES, q0 = qt * C::BQ;
+      mbar_wait(full(s), (it / C::STAGES) & 1);
+      const uint32_t sQ = stage_q(s), sdO = sQ + C::T_BYTES;
+      const float* v = vec + s * 2 * C::BQ;
+
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < D / 16; ++k)  // S^T = K . Q^T: this warpgroup's keys x the tile's queries
+        Wgmma<C::BQ>::ss(st, desc_k_major(sKw, C::BK, k), desc_k_major(sQ, C::BQ, k), k > 0);
+#pragma unroll
+      for (int k = 0; k < D / 16; ++k)  // dP^T = V . dO^T
+        Wgmma<C::BQ>::ss(dpt, desc_k_major(sVw, C::BK, k), desc_k_major(sdO, C::BQ, k), k > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      const bool need_mask = q0 + C::BQ > q_len || kw0 + 64 > kv_len ||
+                             (causal && kw0 + 63 > q0 + off);
+#pragma unroll
+      for (int i = 0; i < C::BQ / 2; ++i) {
+        const int col = 8 * (i / 4) + col0 + (i & 1);  // query column within the tile
+        float p = exp2_approx(fmaf(st[i], scale_log2, -v[col]));
+        if (need_mask) {
+          const int ki = k0 + row_a + 8 * ((i / 2) & 1), qi = q0 + col;
+          if (ki >= kv_len || qi >= q_len || (causal && ki > qi + off)) p = 0.f;
+        }
+        dpt[i] = p * (dpt[i] - v[C::BQ + col]) * scale;
+        st[i] = p;
+      }
+
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < C::BQ / 16; ++k) {  // dV += P^T . dO
+        uint32_t a[4];
+        acc_to_a(st, k, a);
+        Wgmma<D>::rs(dv_acc, a, desc_mn_major(sdO, C::BQ, k), 1);
+      }
+#pragma unroll
+      for (int k = 0; k < C::BQ / 16; ++k) {  // dK += dS^T . Q
+        uint32_t a[4];
+        acc_to_a(dpt, k, a);
+        Wgmma<D>::rs(dk_acc, a, desc_mn_major(sQ, C::BQ, k), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+    }
+    store_acc<D>(dv_acc, dv, b, h, H, kv_len, k0 + row_a, 1.f, 1.f);
+    store_acc<D>(dk_acc, dk, b, h, H, kv_len, k0 + row_a, 1.f, 1.f);
+  }
+}
+
+// ---- dQ (wmma) -------------------------------------------------------------------
 
 constexpr int BM = 64;  // rows of the tile a block owns
 constexpr int BN = 64;  // rows of the tile a block streams
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
-constexpr float NEG_INF = -1e30f;  // the Pallas kernels' finite mask value
 
 // Shared-memory row strides. The pads put the rows of a 16-row wmma load on
 // different banks and keep every 16x16 fragment 32-byte aligned.
@@ -69,39 +491,21 @@ struct Smem {
   static constexpr int LDH = D + 8;   // bf16 [64, D] operand tile
   static constexpr int LDS = BN + 4;  // fp32 [64, 64] score tile
   static constexpr int LDP = BN + 8;  // bf16 [64, 64] probability tile
-  static constexpr int LDO = D + 4;   // fp32 [64, D] accumulator tile
+  static constexpr int LDO = D + 4;   // fp32 [64, D] result staging tile
   static constexpr int H_TILE = BM * LDH * 2;  // bytes of each tile
   static constexpr int S_TILE = BM * LDS * 4;
   static constexpr int P_TILE = BM * LDP * 2;
   static constexpr int O_TILE = BM * LDO * 4;
   static constexpr int VEC_BYTES = BM * 4;
-  static constexpr int FWD = 3 * H_TILE + S_TILE + P_TILE + O_TILE;
   static constexpr int DQ = 4 * H_TILE + 2 * S_TILE + P_TILE + 2 * VEC_BYTES;
-  static constexpr int DKDV = 4 * H_TILE + 2 * S_TILE + 2 * P_TILE + 2 * VEC_BYTES;
-  // the backward kernels stage their fp32 results in the two score tiles
+  // the kernel stages its fp32 result in the two score tiles
   static_assert(2 * S_TILE >= O_TILE, "staging area too small");
-};
-
-struct Layout {  // element strides of a [B, T, H, D] tensor whose D stride is 1
-  int64_t b, t, h;
 };
 
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // Rows row0 .. row0+63 of head (b, h) into a [64, D] shared tile; rows at or past
 // n_rows are zero, as the Pallas wrappers zero-pad.
@@ -166,18 +570,13 @@ __device__ __forceinline__ void mm_ab(Acc (&acc)[D / 16], const bf16* a, const b
   }
 }
 
-// One row of a contiguous [B, T, H, D] bf16 output from an fp32 shared row,
-// divided by div; each lane writes neighbouring pairs.
+// One row of a contiguous [B, T, H, D] bf16 output from an fp32 shared row;
+// each lane writes neighbouring pairs.
 template <int D>
-__device__ __forceinline__ void store_row(bf16* dst, const float* src, float div, int lane) {
+__device__ __forceinline__ void store_row(bf16* dst, const float* src, int lane) {
 #pragma unroll
   for (int c = 2 * lane; c < D; c += 64)
-    *reinterpret_cast<__nv_bfloat162*>(dst + c) =
-        __floats2bfloat162_rn(src[c] / div, src[c + 1] / div);
-}
-
-__device__ __forceinline__ int64_t out_row(int b, int t, int h, int T, int H, int D) {
-  return ((static_cast<int64_t>(b) * T + t) * H + h) * D;
+    *reinterpret_cast<__nv_bfloat162*>(dst + c) = __floats2bfloat162_rn(src[c], src[c + 1]);
 }
 
 // A warp's 16 accumulator rows (tile rows r0 .. r0+15, global rows row0 + r0 ..)
@@ -194,99 +593,9 @@ __device__ __forceinline__ void store_acc_rows(Acc (&acc)[D / 16], float* stage,
   for (int r = 0; r < 16; ++r) {
     const int t = row0 + r0 + r;
     if (t >= T) break;
-    store_row<D>(dst + out_row(b, t, h, T, H, D), stage + (r0 + r) * LDO, 1.f, lane);
+    store_row<D>(dst + out_row(b, t, h, T, H, D), stage + (r0 + r) * LDO, lane);
   }
   __syncwarp();
-}
-
-// Number of K tiles a causal Q tile starting at q0 visits: a K tile strictly right
-// of the tile's last row is skipped, as in the Pallas kernels.
-__device__ __forceinline__ int k_tiles(int q0, int q_len, int kv_len, int causal) {
-  int n = (kv_len + BN - 1) / BN;
-  if (causal) {
-    const int last = q0 + BM - 1 + kv_len - q_len;
-    n = min(n, last < 0 ? 0 : last / BN + 1);
-  }
-  return n;
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, Layout lq, Layout lk, Layout lv,
-                 bf16* __restrict__ o, float* __restrict__ lse, int H, int q_len, int kv_len,
-                 float scale, int causal) {
-  typedef Smem<D> S;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = reinterpret_cast<bf16*>(smem + S::H_TILE);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 2 * S::H_TILE);
-  float* sS = reinterpret_cast<float*>(smem + 3 * S::H_TILE);
-  bf16* sP = reinterpret_cast<bf16*>(smem + 3 * S::H_TILE + S::S_TILE);
-  float* sO = reinterpret_cast<float*>(smem + 3 * S::H_TILE + S::S_TILE + S::P_TILE);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * 16;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows start first
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = qt * BM, off = kv_len - q_len;
-
-  load_rows<D>(sQ, q, lq, b, h, q0, q_len);
-  for (int i = threadIdx.x; i < BM * S::LDO; i += NTHREADS) sO[i] = 0.f;
-  float m_i[16], l_i[16];  // running max and normaliser of the warp's rows
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    m_i[r] = NEG_INF;
-    l_i[r] = 0.f;
-  }
-
-  const int n_kt = k_tiles(q0, q_len, kv_len, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();
-    load_rows<D>(sK, k, lk, b, h, k0, kv_len);
-    load_rows<D>(sV, v, lv, b, h, k0, kv_len);
-    __syncthreads();
-    mm_abt<D>(sS + r0 * S::LDS, S::LDS, sQ + r0 * S::LDH, sK);
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int row = r0 + r, qi = q0 + row;
-      float s[2];
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = lane + 32 * c, ki = k0 + col;
-        const bool keep = ki < kv_len && (!causal || ki <= qi + off);
-        s[c] = keep ? sS[row * S::LDS + col] * scale : NEG_INF;
-      }
-      const float m_new = fmaxf(m_i[r], warp_max(fmaxf(s[0], s[1])));
-      const float alpha = expf(m_i[r] - m_new);
-      const float p0 = expf(s[0] - m_new), p1 = expf(s[1] - m_new);
-      l_i[r] = alpha * l_i[r] + warp_sum(p0 + p1);
-      m_i[r] = m_new;
-      sP[row * S::LDP + lane] = __float2bfloat16(p0);
-      sP[row * S::LDP + lane + 32] = __float2bfloat16(p1);
-#pragma unroll
-      for (int c = lane; c < D; c += 32) sO[row * S::LDO + c] *= alpha;
-    }
-    __syncwarp();
-    Acc acc[D / 16];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      wmma::load_matrix_sync(acc[j], sO + r0 * S::LDO + j * 16, S::LDO, wmma::mem_row_major);
-    mm_ab<D>(acc, sP + r0 * S::LDP, sV);
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      wmma::store_matrix_sync(sO + r0 * S::LDO + j * 16, acc[j], S::LDO, wmma::mem_row_major);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int row = r0 + r, qi = q0 + row;
-    if (qi >= q_len) break;
-    const float l_safe = l_i[r] == 0.f ? 1.f : l_i[r];
-    store_row<D>(o + out_row(b, qi, h, q_len, H, D), sO + row * S::LDO, l_safe, lane);
-    if (lane == 0) lse[static_cast<int64_t>(bh) * q_len + qi] = m_i[r] + logf(l_safe);
-  }
 }
 
 template <int D>
@@ -321,7 +630,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
 
-  const int n_kt = k_tiles(q0, q_len, kv_len, causal);
+  const int n_kt = k_tiles(q0, BM, BN, q_len, kv_len, causal);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BN;
     __syncthreads();
@@ -350,81 +659,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_acc_rows<D>(acc, sS, dq, b, h, H, q_len, q0, r0, lane);
 }
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dout, Layout lq,
-                      Layout lk, Layout lv, Layout ldo, const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int H, int q_len, int kv_len, float scale,
-                      int causal) {
-  typedef Smem<D> S;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = reinterpret_cast<bf16*>(smem + S::H_TILE);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + 2 * S::H_TILE);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + 3 * S::H_TILE);
-  float* sST = reinterpret_cast<float*>(smem + 4 * S::H_TILE);  // scores, keys x queries
-  float* sdPT = reinterpret_cast<float*>(smem + 4 * S::H_TILE + S::S_TILE);
-  bf16* sPT = reinterpret_cast<bf16*>(smem + 4 * S::H_TILE + 2 * S::S_TILE);
-  bf16* sdST = reinterpret_cast<bf16*>(smem + 4 * S::H_TILE + 2 * S::S_TILE + S::P_TILE);
-  float* s_lse =
-      reinterpret_cast<float*>(smem + 4 * S::H_TILE + 2 * S::S_TILE + 2 * S::P_TILE);
-  float* s_delta = s_lse + BM;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * 16;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * BN, off = kv_len - q_len;
-
-  load_rows<D>(sK, k, lk, b, h, k0, kv_len);
-  load_rows<D>(sV, v, lv, b, h, k0, kv_len);
-  Acc dk_acc[D / 16], dv_acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fill_fragment(dk_acc[j], 0.f);
-    wmma::fill_fragment(dv_acc[j], 0.f);
-  }
-
-  // First Q tile with a row that may see this K tile (the Pallas run condition).
-  const int n_qt = (q_len + BM - 1) / BM;
-  int qt_begin = 0;
-  if (causal) {
-    const int first = k0 - off - (BM - 1);
-    qt_begin = first <= 0 ? 0 : (first + BM - 1) / BM;
-  }
-  for (int qt = qt_begin; qt < n_qt; ++qt) {
-    const int q0 = qt * BM;
-    __syncthreads();
-    load_rows<D>(sQ, q, lq, b, h, q0, q_len);
-    load_rows<D>(sdO, dout, ldo, b, h, q0, q_len);
-    load_vec(s_lse, lse + static_cast<int64_t>(bh) * q_len, q0, q_len);
-    load_vec(s_delta, delta + static_cast<int64_t>(bh) * q_len, q0, q_len);
-    __syncthreads();
-    // this warp's 16 keys against the tile's 64 queries
-    mm_abt<D>(sST + r0 * S::LDS, S::LDS, sK + r0 * S::LDH, sQ);
-    mm_abt<D>(sdPT + r0 * S::LDS, S::LDS, sV + r0 * S::LDH, sdO);
-    __syncwarp();
-#pragma unroll 4
-    for (int r = 0; r < 16; ++r) {
-      const int row = r0 + r, ki = k0 + row;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = lane + 32 * c, qi = q0 + col;
-        const bool keep = ki < kv_len && qi < q_len && (!causal || ki <= qi + off);
-        const float p = keep ? expf(sST[row * S::LDS + col] * scale - s_lse[col]) : 0.f;
-        const float ds = p * (sdPT[row * S::LDS + col] - s_delta[col]) * scale;
-        sPT[row * S::LDP + col] = __float2bfloat16(p);
-        sdST[row * S::LDP + col] = __float2bfloat16(ds);
-      }
-    }
-    __syncwarp();
-    mm_ab<D>(dv_acc, sPT + r0 * S::LDP, sdO);  // dV += P^T . dO
-    mm_ab<D>(dk_acc, sdST + r0 * S::LDP, sQ);  // dK += dS^T . Q
-  }
-  __syncthreads();
-  store_acc_rows<D>(dv_acc, sST, dv, b, h, H, kv_len, k0, r0, lane);
-  store_acc_rows<D>(dk_acc, sST, dk, b, h, H, kv_len, k0, r0, lane);
-}
+// ---- launches ---------------------------------------------------------------------
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
@@ -432,22 +667,35 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 }
 
 template <int D>
-cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, Layout lq, Layout lk,
-                       Layout lv, bf16* o, float* lse, int B, int H, int q_len, int kv_len,
-                       float scale, int causal, cudaStream_t stream) {
-  cudaError_t err = allow_smem(flash_fwd_kernel<D>, Smem<D>::FWD);
+bool map(CUtensorMap* m, const bf16* x, Layout L, int B, int T, int H, int rows) {
+  return bthd_map(m, x, L.b, L.t, L.h, B, T, H, D, rows);
+}
+
+template <int D>
+int launch_fwd(const bf16* q, const bf16* k, const bf16* v, Layout lq, Layout lk, Layout lv,
+               bf16* o, float* lse, int B, int H, int q_len, int kv_len, float scale, int causal,
+               cudaStream_t stream) {
+  typedef Fwd<D> C;
+  CUtensorMap mq, mk, mv;
+  if (!map<D>(&mq, q, lq, B, q_len, H, C::BM) || !map<D>(&mk, k, lk, B, kv_len, H, C::BN) ||
+      !map<D>(&mv, v, lv, B, kv_len, H, C::BN))
+    return TENSOR_MAP_ERROR;
+  cudaError_t err = allow_smem(flash_fwd_kernel<D>, C::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((q_len + BM - 1) / BM, B * H);
-  flash_fwd_kernel<D><<<grid, NTHREADS, Smem<D>::FWD, stream>>>(
-      q, k, v, lq, lk, lv, o, lse, H, q_len, kv_len, scale, causal);
+  int dev = 0, n_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const int n_work = (q_len + C::BM - 1) / C::BM * B * H;  // one resident block per SM
+  flash_fwd_kernel<D><<<min(n_work, n_sm), WS_THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, o, lse, B * H, H, q_len, kv_len, scale * LOG2E, causal);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, Layout lq,
-                      Layout lk, Layout lv, Layout ldo, const float* lse, const float* delta,
-                      bf16* dq, int B, int H, int q_len, int kv_len, float scale, int causal,
-                      cudaStream_t stream) {
+int launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, Layout lq,
+              Layout lk, Layout lv, Layout ldo, const float* lse, const float* delta, bf16* dq,
+              int B, int H, int q_len, int kv_len, float scale, int causal, cudaStream_t stream) {
   cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, Smem<D>::DQ);
   if (err != cudaSuccess) return err;
   const dim3 grid((q_len + BM - 1) / BM, B * H);
@@ -457,15 +705,20 @@ cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* d
 }
 
 template <int D>
-cudaError_t launch_dkdv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-                        Layout lq, Layout lk, Layout lv, Layout ldo, const float* lse,
-                        const float* delta, bf16* dk, bf16* dv, int B, int H, int q_len,
-                        int kv_len, float scale, int causal, cudaStream_t stream) {
-  cudaError_t err = allow_smem(flash_bwd_dkdv_kernel<D>, Smem<D>::DKDV);
+int launch_dkdv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, Layout lq,
+                Layout lk, Layout lv, Layout ldo, const float* lse, const float* delta, bf16* dk,
+                bf16* dv, int B, int H, int q_len, int kv_len, float scale, int causal,
+                cudaStream_t stream) {
+  typedef Dkdv<D> C;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!map<D>(&mq, q, lq, B, q_len, H, C::BQ) || !map<D>(&mdo, dout, ldo, B, q_len, H, C::BQ) ||
+      !map<D>(&mk, k, lk, B, kv_len, H, C::BK) || !map<D>(&mv, v, lv, B, kv_len, H, C::BK))
+    return TENSOR_MAP_ERROR;
+  cudaError_t err = allow_smem(flash_bwd_dkdv_kernel<D>, C::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((kv_len + BN - 1) / BN, B * H);
-  flash_bwd_dkdv_kernel<D><<<grid, NTHREADS, Smem<D>::DKDV, stream>>>(
-      q, k, v, dout, lq, lk, lv, ldo, lse, delta, dk, dv, H, q_len, kv_len, scale, causal);
+  const dim3 grid(B * H, (kv_len + C::BK - 1) / C::BK);
+  flash_bwd_dkdv_kernel<D><<<grid, WS_THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, mdo, lse, delta, dk, dv, H, q_len, kv_len, scale, scale * LOG2E, causal);
   return cudaGetLastError();
 }
 
@@ -475,10 +728,12 @@ Layout layout(int sb, int st, int sh) { return Layout{sb, st, sh}; }
 
 // Plain C interface for ctypes. Pointers are device pointers; every stride is in
 // elements of a [B, T, H, D] tensor with D stride 1. Each call returns the
-// cudaError_t of its launch (0 on success).
+// cudaError_t of its launch (0 on success), or TENSOR_MAP_ERROR if the driver
+// refused a tensor map.
 extern "C" {
 
 const char* flash_error_string(int code) {
+  if (code == TENSOR_MAP_ERROR) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -89,6 +89,53 @@ def test_plain_kernels_match_pallas(causal, t_q, t_kv, block_q, block_k):
     _close(dq_j, dq_t, GRAD_ATOL)
 
 
+# The CUDA kernels' own tiles (``kernel_tiles``), at which chip_smoke.py holds
+# each kernel against its plain version: two full tiles, and a ragged pair
+# whose query and key ends both fall inside 128-row tiles (causal, with the
+# end-aligned diagonal crossing tiles off their corners).
+KERNEL_TILE_CASES = [("fwd", 64), ("bwd_dkdv", 64), ("bwd_dkdv", 128), ("bwd_dq", 64)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t_q,t_kv", [(256, 256), (136, 264)])
+@pytest.mark.parametrize("kernel,head_dim", KERNEL_TILE_CASES)
+def test_plain_versions_match_pallas_at_kernel_tiles(kernel, head_dim, t_q, t_kv, causal):
+    """Each plain version at its CUDA kernel's (block_q, block_k) against the
+    Pallas kernel at the same blocks (narrow head dim: the tile shape, not the
+    width, is what the blocking changes)."""
+    block_q, block_k = tfa.kernel_tiles(kernel, head_dim)
+    q, k, v, do = _arrays((2, t_q, 16), (2, t_kv, 16), seed=t_q + block_q)
+    scale = 0.25
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    out_j, lse_j = jfa._flash_fwd(jq, jk, jv, scale, causal, block_q, block_k)
+    if kernel == "fwd":
+        out_t, lse_t = tfa.flash_fwd_plain(_t(q), _t(k), _t(v), scale, causal, block_q, block_k)
+        _close(out_j, out_t, FWD_ATOL)
+        _close(lse_j, lse_t, FWD_ATOL)
+        return
+    dq_j, dk_j, dv_j = jfa._flash_bwd(
+        jq, jk, jv, out_j, lse_j, jnp.asarray(do), scale, causal, block_q, block_k
+    )
+    delta = tfa.softmax_delta(_t(do), _t(out_j))
+    args = (_t(q), _t(k), _t(v), _t(do), _t(lse_j), delta, scale, causal, block_q, block_k)
+    if kernel == "bwd_dkdv":
+        dk_t, dv_t = tfa.flash_bwd_dkdv_plain(*args)
+        _close(dk_j, dk_t, GRAD_ATOL)
+        _close(dv_j, dv_t, GRAD_ATOL)
+    else:
+        _close(dq_j, tfa.flash_bwd_dq_plain(*args), GRAD_ATOL)
+
+
+def test_kernel_tiles_name_every_kernel():
+    assert {name for name, _ in KERNEL_TILE_CASES} == set(tfa.launches)
+    for name in tfa.launches:
+        for head_dim in (64, 128):
+            block_q, block_k = tfa.kernel_tiles(name, head_dim)
+            assert block_q % 16 == 0 and block_k % 16 == 0
+    with pytest.raises(ValueError, match="no flash attention kernel"):
+        tfa.kernel_tiles("bwd", 64)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("t", [32, 40])
 def test_public_forward_and_grads_match_jax(causal, t):
