@@ -12,13 +12,14 @@ and prints no result):
    csrc`` with ``nvcc`` (first use) and prints the build seconds;
 3. kernels: prints each kernel's registers and spills from the ptxas log
    and its HGMMA (wgmma) and UTMALDG (TMA load) counts from ``cuobjdump
-   --dump-sass`` of the built library, and fails if the forward or dK/dV
-   kernel issues no wgmma; then holds each of the three kernels against its
-   plain PyTorch version, run at the kernel's own tile sizes
+   --dump-sass`` of the built library, and fails if any of the three
+   kernels issues no wgmma or no TMA load; then holds each of them against
+   its plain PyTorch version, run at the kernel's own tile sizes
    (``kernel_tiles``), on the same bf16 inputs at the training shape (B=8,
    T=1024, H=12, D=64, causal) and at ragged shapes (T=1000; D=128
-   non-causal at batch 1, D=64 causal; causal q_len 384 < kv_len 1000), and
-   times kernel, plain version and ``scaled_dot_product_attention`` (the
+   non-causal at batch 1, D=64 causal; causal q_len 384 < kv_len 1000;
+   causal q_len > kv_len at a ragged kv_len, D=64 and D=128), and times
+   kernel, plain version and ``scaled_dot_product_attention`` (the
    yardstick, never called by the port) with CUDA events;
 4. main path: GPT-2 small at full width (flash attention, remat, seq
    1024) takes a few training steps at batch 8 on seeded random tokens
@@ -46,14 +47,22 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 MAIN_SHAPE = dict(B=8, T=1024, H=12, D=64, causal=True)
-# ragged edges (T % 128 != 0), head_dim 128, batch 1, causal ragged tiles, and
+# ragged edges (T % 128 != 0), head_dim 128, batch 1, causal ragged tiles,
 # causal q_len < kv_len, where the end-aligned diagonal crosses 128-row tiles
-# off their corners
+# off their corners, and causal q_len > kv_len at a ragged kv_len, where the
+# first q_len - kv_len rows see no key (lse -1e30: the kernels must take their
+# p from the mask) and whole Q tiles visit no K tile. On those rows the
+# reference's forward averages V over the keys of the blocks it visits, zero
+# padding included (ROADMAP.md section C), so its output depends on the block
+# size: every comparison runs the plain version at the kernel's own tiles.
 RAGGED_SHAPES = [dict(B=1, T=1000, H=4, D=128, causal=False),
                  dict(B=2, T=1000, H=2, D=64, causal=True),
-                 dict(B=2, Tq=384, Tkv=1000, H=2, D=64, causal=True)]
-# kernels rewritten for Hopper's wgmma and TMA: their SASS must hold HGMMA
-WGMMA_KERNELS = ("fwd", "bwd_dkdv")
+                 dict(B=2, Tq=384, Tkv=1000, H=2, D=64, causal=True),
+                 dict(B=2, Tq=1000, Tkv=700, H=2, D=64, causal=True),
+                 dict(B=1, Tq=520, Tkv=200, H=3, D=128, causal=True)]
+# kernels rewritten for Hopper's wgmma and TMA: their SASS must hold HGMMA and
+# UTMALDG
+WGMMA_KERNELS = ("fwd", "bwd_dkdv", "bwd_dq")
 SOURCE = "dlrover_tpu_torch/ops/csrc/flash_attention.cu"
 REPLACES = {
     "fwd": "dlrover_tpu/ops/flash_attention.py:71",
@@ -139,7 +148,8 @@ def binary_report(build):
     """Per kernel instance ``(name, head_dim)``: registers and spill bytes
     from the ptxas log kept beside the library, and the HGMMA (wgmma) and
     UTMALDG (TMA load) instructions in its SASS (``cuobjdump --dump-sass``).
-    Raises if a kernel rewritten for wgmma issues none."""
+    Raises if a kernel rewritten for wgmma and TMA issues no HGMMA or no
+    UTMALDG."""
 
     def instance(symbol):
         for name, kernel in KERNEL_SYMBOLS.items():
@@ -187,8 +197,9 @@ def binary_report(build):
         for d in (64, 128):
             if (name, d) not in report:
                 raise AssertionError(f"no ptxas entry for {name} D={d}")
-            if name in WGMMA_KERNELS and report[(name, d)]["hgmma"] == 0:
-                raise AssertionError(f"{name} D={d} issues no wgmma (HGMMA) in its SASS")
+            for what, key in (("wgmma (HGMMA)", "hgmma"), ("TMA load (UTMALDG)", "utmaldg")):
+                if name in WGMMA_KERNELS and report[(name, d)][key] == 0:
+                    raise AssertionError(f"{name} D={d} issues no {what} in its SASS")
     return report
 
 

@@ -30,13 +30,13 @@
 // All three sit near the ridge, so a kernel must both keep the score matrix out of
 // device memory and keep the tensor cores fed.
 //
-// Forward and dK/dV: warp-specialised wgmma kernels (hopper.cuh has the blocks).
-// A block is three warpgroups. Warpgroups 0 and 1 consume: each owns 64 rows of
-// the block's resident tile (query rows in the forward, keys in dK/dV), issues its
-// products with wgmma and keeps its scores and accumulators in registers for the
-// whole loop; they take 232 registers a thread with setmaxnreg. Warpgroup 2
+// All three are warp-specialised wgmma kernels (hopper.cuh has the blocks). A
+// block is three warpgroups. Warpgroups 0 and 1 consume: each owns 64 rows of the
+// block's resident tile (query rows in the forward and dQ, keys in dK/dV), issues
+// its products with wgmma and keeps its scores and accumulators in registers for
+// the whole loop; they take 232 registers a thread with setmaxnreg. Warpgroup 2
 // produces: it drops to 40 registers and one of its threads streams the other
-// operand's tiles in by TMA (128-byte swizzle, straight from the strided
+// operands' tiles in by TMA (128-byte swizzle, straight from the strided
 // [B, T, H, D] tensors) through a ring of full/empty mbarriers, so the next tile's
 // copy overlaps this tile's products. The resident tile comes in once, by TMA too.
 //   forward: S = Q.K^T (both operands in shared memory) -> online softmax on the
@@ -52,23 +52,24 @@
 //   dK/dV: S^T = K.Q^T and dP^T = V.dO^T -> P^T and dS^T in registers, with lse
 //     and delta per query column -> dV += P^T.dO and dK += dS^T.Q. One block per
 //     128-key tile, the tiles with the most causal rows first.
+//   dQ: the forward's persistent walk over 128-row Q tiles, with Q and dO
+//     resident and K and V streamed. S = Q.K^T and dP = dO.V^T from shared memory
+//     -> one pass on the accumulator layout, with each row's lse and delta in
+//     registers: p = exp2(s * scale * log2(e) - lse * log2(e)), masked only on
+//     tiles that cross the diagonal or kv_len, ds = p * (dp - delta) * scale ->
+//     dS as bf16 registers -> dQ += dS.K, K read transposed from the same shared
+//     tile the scores read, so one K tile serves both products. 128 keys a tile
+//     at D=64; 64 at D=128, where dQ alone takes 64 registers a thread.
 // No fp32 score or accumulator tile touches shared memory.
-//
-// dQ: the first port's design, not yet redesigned. One block of 4 warps per 64-row
-// Q tile; each warp owns 16 rows; products through nvcuda::wmma 16x16x16 fragments
-// (mma.sync) with operands staged in shared memory by synchronous loads, and the
-// dS algebra on fp32 score tiles in shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using namespace hopper;
 typedef __nv_bfloat16 bf16;
 
@@ -149,11 +150,11 @@ struct Fwd {
   static constexpr int SMEM = BAR_OFF + 8 * (2 + 2 * STAGES) + 1024;  // + alignment slack
 };
 
-// Work item w of a persistent block: Q tiles in order of decreasing causal
-// length (the longest rows first, so the grid's tail is short), then (b, h).
-struct FwdWork {
+// Work item w of a persistent forward or dQ block: Q tiles in order of decreasing
+// causal length (the longest rows first, so the grid's tail is short), then (b, h).
+struct QTileWork {
   int q0, bh, b, h;
-  __device__ FwdWork(int w, int BH, int H, int n_qt, int bm) {
+  __device__ QTileWork(int w, int BH, int H, int n_qt, int bm) {
     bh = w % BH;
     q0 = (n_qt - 1 - w / BH) * bm;
     b = bh / H;
@@ -197,7 +198,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     if (threadIdx.x == PRODUCER_THREAD) {
       int g = 0, item = 0;
       for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++item) {
-        const FwdWork it(w, BH, H, n_qt, C::BM);
+        const QTileWork it(w, BH, H, n_qt, C::BM);
         mbar_wait(q_empty, (item & 1) ^ 1);
         mbar_arrive_expect_tx(q_full, C::Q_BYTES);
         for (int c = 0; c < D / 64; ++c)
@@ -225,7 +226,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 
     int g = 0, item = 0;
     for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++item) {
-      const FwdWork it(w, BH, H, n_qt, C::BM);
+      const QTileWork it(w, BH, H, n_qt, C::BM);
       const int q0 = it.q0, qr0 = q0 + wg * 64;  // the warpgroup's first query row
       const int n_kt = k_tiles(q0, C::BM, C::BN, q_len, kv_len, causal);
 #pragma unroll
@@ -477,186 +478,161 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// ---- dQ (wmma) -------------------------------------------------------------------
+// ---- dQ ------------------------------------------------------------------------
 
-constexpr int BM = 64;  // rows of the tile a block owns
-constexpr int BN = 64;  // rows of the tile a block streams
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-
-// Shared-memory row strides. The pads put the rows of a 16-row wmma load on
-// different banks and keep every 16x16 fragment 32-byte aligned.
 template <int D>
-struct Smem {
-  static constexpr int LDH = D + 8;   // bf16 [64, D] operand tile
-  static constexpr int LDS = BN + 4;  // fp32 [64, 64] score tile
-  static constexpr int LDP = BN + 8;  // bf16 [64, 64] probability tile
-  static constexpr int LDO = D + 4;   // fp32 [64, D] result staging tile
-  static constexpr int H_TILE = BM * LDH * 2;  // bytes of each tile
-  static constexpr int S_TILE = BM * LDS * 4;
-  static constexpr int P_TILE = BM * LDP * 2;
-  static constexpr int O_TILE = BM * LDO * 4;
-  static constexpr int VEC_BYTES = BM * 4;
-  static constexpr int DQ = 4 * H_TILE + 2 * S_TILE + P_TILE + 2 * VEC_BYTES;
-  // the kernel stages its fp32 result in the two score tiles
-  static_assert(2 * S_TILE >= O_TILE, "staging area too small");
+struct Dq {
+  static constexpr int BM = 128;  // query rows per work item, 64 per consumer warpgroup
+  static constexpr int BN = D == 64 ? 128 : 64;  // keys per streamed tile (registers)
+  static constexpr int STAGES = 2;  // 2% faster than 4 at the training shape on the H100
+  static constexpr int Q_BYTES = BM * D * 2;   // the Q or the dO tile
+  static constexpr int KV_BYTES = BN * D * 2;  // one K or V tile
+  static constexpr int K_OFF = 2 * Q_BYTES;    // stage s: K, then V
+  static constexpr int BAR_OFF = K_OFF + STAGES * 2 * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 * (2 + 2 * STAGES) + 1024;
 };
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-
-// Rows row0 .. row0+63 of head (b, h) into a [64, D] shared tile; rows at or past
-// n_rows are zero, as the Pallas wrappers zero-pad.
 template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, Layout L,
-                                          int b, int h, int row0, int n_rows) {
-  constexpr int VEC = 8;  // 16 bytes
-  constexpr int PER_ROW = D / VEC;
-  for (int i = threadIdx.x; i < BM * PER_ROW; i += NTHREADS) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
-    const int t = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < n_rows)
-      val = __ldg(reinterpret_cast<const uint4*>(src + b * L.b + t * L.t + h * L.h + c));
-    *reinterpret_cast<uint4*>(dst + r * Smem<D>::LDH + c) = val;
-  }
-}
+__global__ void __launch_bounds__(WS_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq, int BH, int H,
+                    int q_len, int kv_len, float scale, float scale_log2, int causal) {
+  typedef Dq<D> C;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = align1024(smem_u32(smem));
+  const uint32_t sQ = base, sdO = base + C::Q_BYTES, bar = base + C::BAR_OFF;
+  const uint32_t q_full = bar, q_empty = bar + 8;  // guard the resident Q and dO tiles
+  auto full = [&](int s) { return bar + 8 * (2 + s); };
+  auto empty = [&](int s) { return bar + 8 * (2 + C::STAGES + s); };
+  auto stage_k = [&](int s) { return base + C::K_OFF + s * 2 * C::KV_BYTES; };
 
-__device__ __forceinline__ void load_vec(float* dst, const float* __restrict__ src, int row0,
-                                         int n_rows) {
-  for (int i = threadIdx.x; i < BM; i += NTHREADS)
-    dst[i] = row0 + i < n_rows ? src[row0 + i] : 0.f;
-}
+  const int n_qt = (q_len + C::BM - 1) / C::BM, n_work = n_qt * BH, off = kv_len - q_len;
 
-// out[16, 64] = a[16, D] . b[64, D]^T, both operands row-major tiles of stride LDH.
-template <int D>
-__device__ __forceinline__ void mm_abt(float* out, int ld_out, const bf16* a, const bf16* b) {
-  constexpr int LDH = Smem<D>::LDH;
-  Acc acc[BN / 16];
-#pragma unroll
-  for (int j = 0; j < BN / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk, LDH);
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      FragBt fb;
-      wmma::load_matrix_sync(fb, b + j * 16 * LDH + kk, LDH);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, CONSUMER_WARPS);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), CONSUMER_WARPS);
     }
-  }
-#pragma unroll
-  for (int j = 0; j < BN / 16; ++j)
-    wmma::store_matrix_sync(out + j * 16, acc[j], ld_out, wmma::mem_row_major);
-}
-
-// acc[16, D] += a[16, 64] . b[64, D]; a of stride LDP, b of stride LDH.
-template <int D>
-__device__ __forceinline__ void mm_ab(Acc (&acc)[D / 16], const bf16* a, const bf16* b) {
-  constexpr int LDH = Smem<D>::LDH;
-#pragma unroll
-  for (int kk = 0; kk < BN; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk, Smem<D>::LDP);
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      FragB fb;
-      wmma::load_matrix_sync(fb, b + kk * LDH + j * 16, LDH);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-}
-
-// One row of a contiguous [B, T, H, D] bf16 output from an fp32 shared row;
-// each lane writes neighbouring pairs.
-template <int D>
-__device__ __forceinline__ void store_row(bf16* dst, const float* src, int lane) {
-#pragma unroll
-  for (int c = 2 * lane; c < D; c += 64)
-    *reinterpret_cast<__nv_bfloat162*>(dst + c) = __floats2bfloat162_rn(src[c], src[c + 1]);
-}
-
-// A warp's 16 accumulator rows (tile rows r0 .. r0+15, global rows row0 + r0 ..)
-// to a contiguous [B, T, H, D] bf16 output, through an fp32 staging tile.
-template <int D>
-__device__ __forceinline__ void store_acc_rows(Acc (&acc)[D / 16], float* stage, bf16* dst,
-                                               int b, int h, int H, int T, int row0, int r0,
-                                               int lane) {
-  constexpr int LDO = Smem<D>::LDO;
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j)
-    wmma::store_matrix_sync(stage + r0 * LDO + j * 16, acc[j], LDO, wmma::mem_row_major);
-  __syncwarp();
-  for (int r = 0; r < 16; ++r) {
-    const int t = row0 + r0 + r;
-    if (t >= T) break;
-    store_row<D>(dst + out_row(b, t, h, T, H, D), stage + (r0 + r) * LDO, lane);
-  }
-  __syncwarp();
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout, Layout lq,
-                    Layout lk, Layout lv, Layout ldo, const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq, int H, int q_len,
-                    int kv_len, float scale, int causal) {
-  typedef Smem<D> S;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + S::H_TILE);
-  bf16* sK = reinterpret_cast<bf16*>(smem + 2 * S::H_TILE);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 3 * S::H_TILE);
-  float* sS = reinterpret_cast<float*>(smem + 4 * S::H_TILE);
-  float* sdP = reinterpret_cast<float*>(smem + 4 * S::H_TILE + S::S_TILE);
-  bf16* sdS = reinterpret_cast<bf16*>(smem + 4 * S::H_TILE + 2 * S::S_TILE);
-  float* s_lse = reinterpret_cast<float*>(smem + 4 * S::H_TILE + 2 * S::S_TILE + S::P_TILE);
-  float* s_delta = s_lse + BM;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * 16;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = qt * BM, off = kv_len - q_len;
-
-  load_rows<D>(sQ, q, lq, b, h, q0, q_len);
-  load_rows<D>(sdO, dout, ldo, b, h, q0, q_len);
-  load_vec(s_lse, lse + static_cast<int64_t>(bh) * q_len, q0, q_len);
-  load_vec(s_delta, delta + static_cast<int64_t>(bh) * q_len, q0, q_len);
-  Acc acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  const int n_kt = k_tiles(q0, BM, BN, q_len, kv_len, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();
-    load_rows<D>(sK, k, lk, b, h, k0, kv_len);
-    load_rows<D>(sV, v, lv, b, h, k0, kv_len);
-    __syncthreads();
-    mm_abt<D>(sS + r0 * S::LDS, S::LDS, sQ + r0 * S::LDH, sK);
-    mm_abt<D>(sdP + r0 * S::LDS, S::LDS, sdO + r0 * S::LDH, sV);
-    __syncwarp();
-#pragma unroll 4
-    for (int r = 0; r < 16; ++r) {
-      const int row = r0 + r, qi = q0 + row;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = lane + 32 * c, ki = k0 + col;
-        const bool keep = ki < kv_len && qi < q_len && (!causal || ki <= qi + off);
-        const float p = keep ? expf(sS[row * S::LDS + col] * scale - s_lse[row]) : 0.f;
-        const float ds = p * (sdP[row * S::LDS + col] - s_delta[row]) * scale;
-        sdS[row * S::LDP + col] = __float2bfloat16(ds);
-      }
-    }
-    __syncwarp();
-    mm_ab<D>(acc, sdS + r0 * S::LDP, sK);  // dQ += dS . K
+    fence_barrier_init();
   }
   __syncthreads();
-  store_acc_rows<D>(acc, sS, dq, b, h, H, q_len, q0, r0, lane);
+
+  if (threadIdx.x >= PRODUCER_THREAD) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == PRODUCER_THREAD) {
+      int g = 0, item = 0;
+      for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++item) {
+        const QTileWork it(w, BH, H, n_qt, C::BM);
+        mbar_wait(q_empty, (item & 1) ^ 1);
+        mbar_arrive_expect_tx(q_full, 2 * C::Q_BYTES);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(sQ + c * C::BM * 128, &tm_q, q_full, 64 * c, it.q0, it.h, it.b);
+          tma_load_4d(sdO + c * C::BM * 128, &tm_do, q_full, 64 * c, it.q0, it.h, it.b);
+        }
+        const int n_kt = k_tiles(it.q0, C::BM, C::BN, q_len, kv_len, causal);
+        for (int kt = 0; kt < n_kt; ++kt, ++g) {
+          const int s = g % C::STAGES;
+          mbar_wait(empty(s), ((g / C::STAGES) & 1) ^ 1);
+          mbar_arrive_expect_tx(full(s), 2 * C::KV_BYTES);
+          const uint32_t sK = stage_k(s), sV = sK + C::KV_BYTES;
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load_4d(sK + c * C::BN * 128, &tm_k, full(s), 64 * c, kt * C::BN, it.h, it.b);
+            tma_load_4d(sV + c * C::BN * 128, &tm_v, full(s), 64 * c, kt * C::BN, it.h, it.b);
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+    const int row_a = wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;  // and row_a + 8
+    const int col0 = (lane % 4) * 2;
+    const uint32_t sQw = sQ + wg * 64 * 128, sdOw = sdO + wg * 64 * 128;
+    float dq_acc[D / 2], s_acc[C::BN / 2], dp_acc[C::BN / 2];
+    // Q and dO are read for the last time by an item's last score products: the
+    // producer may then load the next item's while the last dS.K runs
+    auto release_q = [&] {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(q_empty);
+    };
+
+    int g = 0, item = 0;
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++item) {
+      const QTileWork it(w, BH, H, n_qt, C::BM);
+      const int q0 = it.q0, qr0 = q0 + wg * 64;  // the warpgroup's first query row
+      const int n_kt = k_tiles(q0, C::BM, C::BN, q_len, kv_len, causal);
+      // the thread's two rows' lse in log2 units and delta; rows at or past q_len
+      // read 0 (they are never stored, and their zero Q and dO rows give ds = 0)
+      float lse2[2], dlt[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = q0 + row_a + 8 * r;
+        const int64_t at = static_cast<int64_t>(it.bh) * q_len + qi;
+        lse2[r] = qi < q_len ? lse[at] * LOG2E : 0.f;
+        dlt[r] = qi < q_len ? delta[at] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+
+      mbar_wait(q_full, item & 1);
+      for (int kt = 0; kt < n_kt; ++kt, ++g) {
+        const int s = g % C::STAGES, k0 = kt * C::BN;
+        mbar_wait(full(s), (g / C::STAGES) & 1);
+        const uint32_t sK = stage_k(s), sV = sK + C::KV_BYTES;
+
+        fence_regs(s_acc);
+        fence_regs(dp_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < D / 16; ++k)  // S = Q.K^T
+          Wgmma<C::BN>::ss(s_acc, desc_k_major(sQw, C::BM, k), desc_k_major(sK, C::BN, k), k > 0);
+#pragma unroll
+        for (int k = 0; k < D / 16; ++k)  // dP = dO.V^T
+          Wgmma<C::BN>::ss(dp_acc, desc_k_major(sdOw, C::BM, k), desc_k_major(sV, C::BN, k), k > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s_acc);
+        fence_regs(dp_acc);
+        if (kt == n_kt - 1) release_q();
+
+        // Only a tile that crosses the diagonal or kv_len is masked. A row that sees
+        // no key (causal, q_len > kv_len) has lse = -1e30, and exp2 gives +inf for
+        // it; every tile of its warpgroup crosses the diagonal, so the mask always
+        // replaces that by 0. Keys past kv_len, zero-filled by TMA, are masked too.
+        const bool need_mask = k0 + C::BN > kv_len || (causal && k0 + C::BN - 1 > qr0 + off);
+#pragma unroll
+        for (int i = 0; i < C::BN / 2; ++i) {
+          const int r = (i / 2) & 1;
+          float p = exp2_approx(fmaf(s_acc[i], scale_log2, -lse2[r]));
+          if (need_mask) {
+            const int ki = k0 + 8 * (i / 4) + col0 + (i & 1), qi = q0 + row_a + 8 * r;
+            if (ki >= kv_len || (causal && ki > qi + off)) p = 0.f;
+          }
+          s_acc[i] = p * (dp_acc[i] - dlt[r]) * scale;  // dS, in place of S
+        }
+
+        fence_regs(dq_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < C::BN / 16; ++k) {  // dQ += dS.K, K read transposed
+          uint32_t a[4];
+          acc_to_a(s_acc, k, a);
+          Wgmma<D>::rs(dq_acc, a, desc_mn_major(sK, C::BN, k), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq_acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(s));
+      }
+      if (n_kt == 0) release_q();  // a Q tile whose rows see no key: dQ = 0
+      store_acc<D>(dq_acc, dq, it.b, it.h, H, q_len, q0 + row_a, 1.f, 1.f);
+    }
+  }
 }
 
 // ---- launches ---------------------------------------------------------------------
@@ -671,6 +647,14 @@ bool map(CUtensorMap* m, const bf16* x, Layout L, int B, int T, int H, int rows)
   return bthd_map(m, x, L.b, L.t, L.h, B, T, H, D, rows);
 }
 
+// Streaming multiprocessors of the current device: the persistent kernels' grid.
+cudaError_t sm_count(int* n_sm) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+}
+
 template <int D>
 int launch_fwd(const bf16* q, const bf16* k, const bf16* v, Layout lq, Layout lk, Layout lv,
                bf16* o, float* lse, int B, int H, int q_len, int kv_len, float scale, int causal,
@@ -681,11 +665,8 @@ int launch_fwd(const bf16* q, const bf16* k, const bf16* v, Layout lq, Layout lk
       !map<D>(&mv, v, lv, B, kv_len, H, C::BN))
     return TENSOR_MAP_ERROR;
   cudaError_t err = allow_smem(flash_fwd_kernel<D>, C::SMEM);
-  if (err != cudaSuccess) return err;
-  int dev = 0, n_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
+  int n_sm = 0;
+  if (err != cudaSuccess || (err = sm_count(&n_sm)) != cudaSuccess) return err;
   const int n_work = (q_len + C::BM - 1) / C::BM * B * H;  // one resident block per SM
   flash_fwd_kernel<D><<<min(n_work, n_sm), WS_THREADS, C::SMEM, stream>>>(
       mq, mk, mv, o, lse, B * H, H, q_len, kv_len, scale * LOG2E, causal);
@@ -696,11 +677,17 @@ template <int D>
 int launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, Layout lq,
               Layout lk, Layout lv, Layout ldo, const float* lse, const float* delta, bf16* dq,
               int B, int H, int q_len, int kv_len, float scale, int causal, cudaStream_t stream) {
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, Smem<D>::DQ);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((q_len + BM - 1) / BM, B * H);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, Smem<D>::DQ, stream>>>(
-      q, k, v, dout, lq, lk, lv, ldo, lse, delta, dq, H, q_len, kv_len, scale, causal);
+  typedef Dq<D> C;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!map<D>(&mq, q, lq, B, q_len, H, C::BM) || !map<D>(&mdo, dout, ldo, B, q_len, H, C::BM) ||
+      !map<D>(&mk, k, lk, B, kv_len, H, C::BN) || !map<D>(&mv, v, lv, B, kv_len, H, C::BN))
+    return TENSOR_MAP_ERROR;
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, C::SMEM);
+  int n_sm = 0;
+  if (err != cudaSuccess || (err = sm_count(&n_sm)) != cudaSuccess) return err;
+  const int n_work = (q_len + C::BM - 1) / C::BM * B * H;  // one resident block per SM
+  flash_bwd_dq_kernel<D><<<min(n_work, n_sm), WS_THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, mdo, lse, delta, dq, B * H, H, q_len, kv_len, scale, scale * LOG2E, causal);
   return cudaGetLastError();
 }
 

@@ -11,8 +11,8 @@ Each of the three Pallas kernels has two counterparts here:
 
 - a CUDA kernel written for Hopper, ``csrc/flash_attention.cu``, which the
   wrapper launches for CUDA tensors (bf16, head_dim 64 or 128) and which
-  reads ``[B, T, H, D]`` through strides (the forward and dK/dV kernels by
-  TMA into wgmma, see ``csrc/hopper.cuh``);
+  reads ``[B, T, H, D]`` through strides, by TMA into wgmma (see
+  ``csrc/hopper.cuh``);
 - a plain PyTorch version over the ``[batch*heads, seq, head_dim]`` layout
   with the reference's semantics (zero padding to the block sizes, the
   end-aligned causal offset ``kv_len - q_len``, the backward's
@@ -48,13 +48,14 @@ def kernel_tiles(name: str, head_dim: int) -> Tuple[int, int]:
     """The CUDA kernel's tile as the plain versions' ``(block_q, block_k)``:
     the forward's 128 query rows by 128 keys; dK/dV's 128 keys by a streamed
     tile of 64 query rows (32 at head_dim 128, to fit its registers); dQ's
-    64 by 64."""
+    128 query rows by a streamed tile of 128 keys (64 at head_dim 128, to fit
+    its registers)."""
     if name == "fwd":
         return 128, 128
     if name == "bwd_dkdv":
         return (64 if head_dim == 64 else 32), 128
     if name == "bwd_dq":
-        return 64, 64
+        return 128, (128 if head_dim == 64 else 64)
     raise ValueError(f"no flash attention kernel named {name!r}")
 
 

@@ -12,9 +12,10 @@ interface is the same. Timing alternates between the versions in 8 rounds
 back-to-back launches by CUDA events, at the training shape (B=8, T=1024,
 H=12, D=64, causal). Two versions compared in one process on one card see
 the same clocks and neighbours; across calls the same kernel can read
-differently. Prints each version's forward error against the plain version,
-then per kernel the median over rounds and every round's value, then the
-card's name, power limit and SM clock. Exits non-zero without a GPU.
+differently. Prints each version's forward and dQ errors against the plain
+versions (at this tree's ``kernel_tiles``), then per kernel (forward, dK/dV,
+dQ) the median over rounds and every round's value, then the card's name,
+power limit and SM clock. Exits non-zero without a GPU.
 """
 
 import ctypes
@@ -91,20 +92,29 @@ def main() -> int:
     b3 = fa._to_bht
     out3, lse3 = fa.flash_fwd_plain(b3(q), b3(k), b3(v), scale, causal,
                                     *fa.kernel_tiles("fwd", D))
-    for root, lib in libs.items():
-        fa._lib = lambda lib=lib: lib
-        out, _ = fa.flash_fwd_cuda(q, k, v, scale, causal)
-        print(root, "forward max_abs_err", float((b3(out).float() - out3.float()).abs().max()))
     # the backward's residuals from the plain forward, the same for every version
     delta = fa.delta_bh(do, fa._from_bht(out3, B, H))
     args = (q, k, v, do, lse3.contiguous(), delta, scale, causal)
+    dq3 = fa.flash_bwd_dq_plain(b3(q), b3(k), b3(v), b3(do), lse3, delta, scale, causal,
+                                *fa.kernel_tiles("bwd_dq", D))
+    for root, lib in libs.items():
+        fa._lib = lambda lib=lib: lib
+        out, _ = fa.flash_fwd_cuda(q, k, v, scale, causal)
+        dq = fa.flash_bwd_dq_cuda(*args)
+        print(root, "forward max_abs_err", float((b3(out).float() - out3.float()).abs().max()),
+              "dq max_abs_err", float((b3(dq).float() - dq3.float()).abs().max()))
 
-    times = {root: {"fwd": [], "bwd_dkdv": []} for root in roots}
+    kernels = {
+        "fwd": lambda: fa.flash_fwd_cuda(q, k, v, scale, causal),
+        "bwd_dkdv": lambda: fa.flash_bwd_dkdv_cuda(*args),
+        "bwd_dq": lambda: fa.flash_bwd_dq_cuda(*args),
+    }
+    times = {root: {name: [] for name in kernels} for root in roots}
     for rnd in range(8):
         for root in roots if rnd % 2 == 0 else roots[::-1]:
             fa._lib = lambda lib=libs[root]: lib
-            times[root]["fwd"].append(time_ms(lambda: fa.flash_fwd_cuda(q, k, v, scale, causal)))
-            times[root]["bwd_dkdv"].append(time_ms(lambda: fa.flash_bwd_dkdv_cuda(*args)))
+            for name, fn in kernels.items():
+                times[root][name].append(time_ms(fn))
     for root in roots:
         print(root, {name: (statistics.median(t), [round(x, 4) for x in t])
                      for name, t in times[root].items()})

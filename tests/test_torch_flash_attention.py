@@ -93,7 +93,8 @@ def test_plain_kernels_match_pallas(causal, t_q, t_kv, block_q, block_k):
 # each kernel against its plain version: two full tiles, and a ragged pair
 # whose query and key ends both fall inside 128-row tiles (causal, with the
 # end-aligned diagonal crossing tiles off their corners).
-KERNEL_TILE_CASES = [("fwd", 64), ("bwd_dkdv", 64), ("bwd_dkdv", 128), ("bwd_dq", 64)]
+KERNEL_TILE_CASES = [("fwd", 64), ("bwd_dkdv", 64), ("bwd_dkdv", 128),
+                     ("bwd_dq", 64), ("bwd_dq", 128)]
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -134,6 +135,15 @@ def test_kernel_tiles_name_every_kernel():
             assert block_q % 16 == 0 and block_k % 16 == 0
     with pytest.raises(ValueError, match="no flash attention kernel"):
         tfa.kernel_tiles("bwd", 64)
+
+
+def test_chip_smoke_requires_wgmma_of_every_kernel():
+    """chip_smoke.py fails on a kernel whose SASS has no HGMMA or UTMALDG
+    only for the kernels it names: every launched kernel must be one."""
+    import chip_smoke
+
+    assert set(chip_smoke.WGMMA_KERNELS) == set(tfa.launches)
+    assert set(chip_smoke.KERNEL_SYMBOLS) == set(tfa.launches)
 
 
 @pytest.mark.parametrize("causal", [True, False])
