@@ -26,10 +26,24 @@ and prints no result):
    through ``init_train_state`` / ``build_train_step``; the losses must be
    finite, the first near ln(vocab), each step must launch exactly 24
    forward, 12 dK/dV and 12 dQ kernels, and the trained model's flash
-   losses must agree with the plain dense attention path on a small batch.
+   losses must agree with the plain dense attention path on a small batch;
+5. checkpoint and elastic loop: this process plays the agent and runs the
+   checkpoint saver; trainers are child processes (``chip_smoke.py
+   --trainer ROLE``) driving GPT-2 small at full width through
+   ``ElasticTrainLoop`` (a stage to shm every step, a persist every 5):
+   an uninterrupted run of 12 steps in its own namespace; a run that stages
+   step 7 and dies by SIGKILL holding the shard lock (shm must hold step 7,
+   storage step 5, and the lock must come free); a run that must restore
+   step 7 from shm with the killed state's SHA-256, train steps 8-11 within
+   1e-2 of the uninterrupted losses at 24/12/12 flash launches a step, with
+   no failed async stage; with the segment unlinked, a restore that must
+   read step 10 from storage, hash-equal to what was staged; and a trainer
+   that times the checkpoint (blocking and async saves, persist, restore,
+   and the loop's step with a stage every step against the bare step).
 
-The output ends with the kernel table as one JSON line, the card's name
-and power limit, and ``{"ok": true, "device": {...}}`` as the last line.
+The output ends with the checkpoint numbers and the kernel table as one
+JSON line each, the card's name and power limit, and ``{"ok": true,
+"device": {...}}`` as the last line.
 """
 
 import dataclasses
@@ -37,9 +51,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor rate and HBM3 rate
@@ -352,6 +368,7 @@ def main_path(fa, gpt, train_step, n_steps=10, batch=8, seq=1024):
     flops_per_token = 6 * n_params + 12 * cfg.num_layers * cfg.embed_dim * seq
     return {
         "model": f"gpt2-small-{n_params / 1e6:.0f}M",
+        "n_params": n_params,
         "batch": batch, "seq_len": seq, "steps": n_steps,
         "first_step_s": step_s[0], "step_s": steady,
         "tokens_per_s": batch * seq / steady,
@@ -363,7 +380,440 @@ def main_path(fa, gpt, train_step, n_steps=10, batch=8, seq=1024):
     }
 
 
-def main() -> int:
+# -- phase 5: flash checkpoint and the elastic loop ---------------------------
+#
+# This process plays the agent: it runs the checkpoint saver on its main
+# thread, and the trainers are separate OS processes (``chip_smoke.py
+# --trainer ROLE``) that connect to it under one fresh DLROVER_JOB_NAME.
+
+LOOP_STEPS = 12      # the uninterrupted trainer runs steps 0..11
+STORAGE_EVERY = 5    # storage steps 0, 5, 10; every step is staged to shm
+KILL_AT = 7          # the killed trainer dies after staging this step
+HASH_AT = 10         # the resumed trainer's last storage step
+RESUME_LOSS_TOL = 1e-2
+BENCH_STEP = 1000    # first step number of the timed saves
+LOOP_BENCH_STEPS = 20
+
+
+def trainer_setup(small, device):
+    """(config, train state, step fn, batches) of the phase's trainers:
+    GPT-2 small at full width (flash, remat, seq 1024, batch 8), or a
+    2-layer model at embed 64 for the CPU tests. Weights from seed 0; the
+    batch of step s is drawn from seed s, so any trainer can resume at any
+    step with the same data."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.models import gpt
+    from dlrover_tpu_torch.parallel import train_step
+
+    if small:
+        cfg = gpt.GPTConfig(vocab_size=256, max_seq_len=32, num_layers=2, num_heads=4,
+                            head_dim=16, embed_dim=64, use_remat=True, attention_impl="flash")
+        batch, seq = 4, 32
+    else:
+        cfg = dataclasses.replace(gpt.GPTConfig.gpt2_small(), attention_impl="flash",
+                                  max_seq_len=1024, use_remat=True)
+        batch, seq = 8, 1024
+    model = gpt.GPT(cfg, device=device)
+    tx = train_step.default_optimizer()
+    state = train_step.init_train_state(
+        model, torch.zeros((batch, seq), dtype=torch.long), tx, device=device, seed=0)
+    step_fn = train_step.build_train_step(model, tx, gpt.cross_entropy_loss)
+
+    def batches(start, stop):
+        for s in range(start, stop):
+            t = torch.from_numpy(np.random.default_rng(s).integers(0, cfg.vocab_size, (batch, seq + 1)))
+            yield t[:, :-1], t[:, 1:]
+
+    return cfg, state, step_fn, batches
+
+
+def state_hash(state):
+    """SHA-256 over every leaf's path and bytes (tensors) or value (ints)."""
+    import hashlib
+
+    import torch
+
+    from dlrover_tpu_torch.checkpoint.shm_handler import flatten_with_path
+
+    h = hashlib.sha256()
+    for path, leaf in flatten_with_path(state):
+        h.update(path.encode())
+        if isinstance(leaf, torch.Tensor):
+            h.update(leaf.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+        else:
+            h.update(repr(leaf).encode())
+    return h.hexdigest()
+
+
+def emit(result):
+    print("RESULT " + json.dumps(result), flush=True)
+
+
+def trainer(args) -> int:
+    """One trainer process of phase 5 (``--trainer ROLE``):
+
+    - ``reference``, ``resume``: run the loop to LOOP_STEPS and report the
+      losses, the restored state's hash and the flash launches;
+    - ``kill``: run the loop and, after staging KILL_AT, report the state's
+      hash and die by SIGKILL while holding the shard lock;
+    - ``restore``: restore through the loop only and report the hash;
+    - ``bench``: time the checkpoint (phase 5's numbers).
+    """
+    from dlrover_tpu_torch.checkpoint.engine import CheckpointEngine
+    from dlrover_tpu_torch.common.platform import resolve_device, strict_fp32
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.trainer.dataloader import to_device
+    from dlrover_tpu_torch.trainer.loop import ElasticTrainLoop
+
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        strict_fp32()
+    cfg, state, inner_step, batches = trainer_setup(args.small, device)
+    engine = CheckpointEngine(args.ckpt)
+    if args.trainer == "bench":
+        emit(bench(engine, state, inner_step, batches, device))
+        engine.close()
+        return 0
+    out = {"role": args.trainer, "losses": {}, "hashes": {}}
+    live = {}
+
+    def step_fn(st, *batch):
+        if args.trainer == "resume" and "restored_hash" not in out:
+            out["restored_hash"] = state_hash(st)  # the state restore handed the loop
+        live["state"], loss = inner_step(st, *batch)
+        return live["state"], loss
+
+    def on_step(step, loss):
+        out["losses"][step] = float(loss)
+        if (step + 1) % STORAGE_EVERY == 0:
+            # the next step persists: let this step's stage and the last
+            # persist finish, so that save is not skipped
+            if not (engine.wait_staged(600) and engine.wait_saving(600)):
+                raise RuntimeError(f"stage or persist before step {step + 1} failed")
+        if step == HASH_AT:
+            out["hashes"][step] = state_hash(live["state"])
+        if args.trainer == "kill" and step == KILL_AT:
+            die_staged(engine, step, live["state"], out)
+
+    loop = ElasticTrainLoop(engine, step_fn, max_steps=LOOP_STEPS, memory_every=1,
+                            storage_every=STORAGE_EVERY, log_every=LOOP_STEPS, on_step=on_step,
+                            input_stage_fn=to_device(device), input_device=device)
+    if args.trainer == "restore":
+        start, restored = loop.restore(state)
+        out.update(step=start - 1, restored_from=engine.restored_from, hash=state_hash(restored))
+    else:
+        fa.reset_launches()
+        loop.run(state, data_factory=lambda start: batches(start, LOOP_STEPS))
+        out.update(restored_step=loop.start_step - 1, restored_from=engine.restored_from,
+                   launches=dict(fa.launches), steps=len(out["losses"]),
+                   stage_failures=engine.stage_failures,
+                   tracker=engine.storage.latest_step(), staged=engine.shm.read_meta().step)
+    emit(out)
+    engine.close()
+    return 0
+
+
+def die_staged(engine, step, state, out):
+    """Make sure ``step`` is the staged image (the persist of the last storage
+    step held the shard lock and made the saves since skip), report its hash,
+    then die by SIGKILL holding the shard lock: the agent's lock server must
+    free it."""
+    import signal
+
+    if not engine.wait_saving(600):
+        raise RuntimeError("the last storage step was not persisted")
+    engine.wait_staged(600)
+    meta = engine.shm.read_meta()
+    if meta is None or meta.step != step:
+        for _ in range(300):  # as the loop's tail stages its final step
+            if engine.save_to_memory(step, state):
+                break
+            time.sleep(0.1)
+    meta = engine.shm.read_meta()
+    if meta is None or meta.step != step:
+        raise RuntimeError(f"could not stage step {step}")
+    out.update(killed_at=step, hash=state_hash(state), stage_failures=engine.stage_failures)
+    emit(out)
+    if not engine._shard_lock.acquire(timeout=60):
+        raise RuntimeError("shard lock busy")
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+def bench(engine, state, step_fn, batches, device):
+    """Checkpoint timings under the names bench.py's ``_bench_checkpoint``
+    reports, on this trainer's full state, with the agent's saver in the
+    parent process: blocking save (min of 3 after a warm-up), async block
+    (min of 2, each drained and checked; drain = dispatch to staged),
+    storage persist (save handed off to committed), restore (shm to the
+    device), goodput at a 10-step cadence, and the loop's step with a stage
+    every step against the bare step."""
+    import torch
+
+    from dlrover_tpu_torch.checkpoint.shm_handler import plan_records
+    from dlrover_tpu_torch.trainer.dataloader import to_device
+    from dlrover_tpu_torch.trainer.loop import ElasticTrainLoop
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    stage = to_device(device)
+    bare = []
+    for x, y in batches(0, 12):
+        x, y = stage((x, y))
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, x, y)
+        float(loss)
+        bare.append(time.perf_counter() - t0)
+    bare_step_s = statistics.median(bare[2:])
+    nbytes = plan_records(state)[2]
+
+    def staged_step():
+        meta = engine.shm.read_meta()
+        return -1 if meta is None else meta.step
+
+    step = BENCH_STEP
+    if not engine.save_to_memory(step, state):  # warm-up: allocates the pinned buffer
+        raise RuntimeError("warm-up save_to_memory skipped")
+    blocking = []
+    for _ in range(3):
+        step += 1
+        t0 = time.perf_counter()
+        if not engine.save_to_memory(step, state):
+            raise RuntimeError(f"save_to_memory skipped at {step}")
+        blocking.append(time.perf_counter() - t0)
+    step += 1  # warm-up of the async path: allocates the snapshot buffers
+    if not (engine.save_to_memory(step, state, block=False) and engine.wait_staged(600)):
+        raise RuntimeError("warm-up async stage failed")
+    async_block, drain = [], []
+    for _ in range(2):
+        step += 1
+        sync()
+        t0 = time.perf_counter()
+        if not engine.save_to_memory(step, state, block=False):
+            raise RuntimeError(f"async save skipped at {step}")
+        t1 = time.perf_counter()
+        if not engine.wait_staged(600) or staged_step() != step:
+            raise RuntimeError(f"async stage of {step} failed")
+        t2 = time.perf_counter()
+        async_block.append(t1 - t0)
+        drain.append(t2 - t0)
+    step += 1
+    t0 = time.perf_counter()
+    if not engine.save_to_storage(step, state):
+        raise RuntimeError(f"save_to_storage skipped at {step}")
+    t1 = time.perf_counter()
+    while engine.storage.latest_step() != step:  # finer than wait_saving's 0.1 s poll
+        if time.perf_counter() - t1 > 600 or engine.storage.persist_error(0):
+            raise RuntimeError(f"persist of {step} failed")
+        time.sleep(0.002)
+    persist_s = time.perf_counter() - t1
+    t0 = time.perf_counter()
+    got, _ = engine.load(state)
+    restore_s = time.perf_counter() - t0
+    if got != step:
+        raise RuntimeError(f"restored step {got}, expected {step}")
+
+    # the loop, staging every step (async), against the bare step above
+    counts = {"staged": 0, "skipped_in_flight": 0, "skipped_busy": 0}
+    save = engine.save_to_memory
+
+    def counting_save(s, tree, *a, **kw):
+        in_flight = engine.staging_in_flight
+        ok = save(s, tree, *a, **kw)
+        if kw.get("block", True) is False:
+            counts["staged" if ok else "skipped_in_flight" if in_flight else "skipped_busy"] += 1
+        return ok
+
+    engine.save_to_memory = counting_save
+    stamps = []
+
+    def on_step(s, loss):
+        float(loss)
+        stamps.append(time.perf_counter())
+
+    first = step + 1
+    loop = ElasticTrainLoop(engine, step_fn, max_steps=first + LOOP_BENCH_STEPS, memory_every=1,
+                            storage_every=0, log_every=10 ** 9, on_step=on_step,
+                            input_stage_fn=stage, input_device=device)
+    loop.run(state, data_factory=lambda start: batches(start, first + LOOP_BENCH_STEPS))
+    engine.save_to_memory = save
+    if loop.start_step != first:
+        raise RuntimeError(f"loop resumed at {loop.start_step}, expected {first}")
+    loop_steps = [b - a for a, b in zip(stamps, stamps[1:])][1:]
+    loop_step_s = statistics.median(loop_steps)
+    async_block_s = min(async_block)
+    save_block_s = min(blocking)
+
+    def gbps(seconds):
+        return nbytes / seconds / 1e9
+
+    return {
+        "ckpt_bytes": nbytes,
+        "save_block_s": save_block_s, "save_block_gbps": gbps(save_block_s),
+        "save_block_runs_s": blocking,
+        "async_block_s": async_block_s, "async_block_runs_s": async_block,
+        "async_drain_s": min(drain), "async_drain_gbps": gbps(min(drain)),
+        "persist_s": persist_s, "persist_gbps": gbps(persist_s),
+        "restore_s": restore_s, "restore_gbps": gbps(restore_s),
+        "restored_from": engine.restored_from,
+        "bare_step_s": bare_step_s,
+        "goodput_10": 10 * bare_step_s / (10 * bare_step_s + async_block_s),
+        "loop_step_s": loop_step_s, "loop_overhead": loop_step_s / bare_step_s - 1,
+        "loop_steps": len(loop_steps), "loop_saves": counts,
+        "stage_failures": engine.stage_failures,
+    }
+
+
+def checkpoint_phase(work, job, device="cuda", small=False, n_params=None, timeout=600,
+                     run_bench=True):
+    """Phase 5. This process runs the saver (the agent's part); trainers run
+    as child processes under DLROVER_JOB_NAME ``job`` with storage and
+    sockets under ``work``. Raises on the first failed check; returns the
+    phase's facts and the checkpoint numbers (None without ``run_bench``).
+    The environment and socket directory it sets are restored on return."""
+    from dlrover_tpu_torch.common import multi_process
+
+    names = ("DLROVER_JOB_NAME", "DLROVER_IPC_DIR", "DLROVER_IPC_NAMESPACE")
+    saved_env = {name: os.environ.get(name) for name in names}
+    saved_dir = multi_process.SOCKET_TMP_DIR
+    os.environ["DLROVER_JOB_NAME"] = job
+    os.environ["DLROVER_IPC_DIR"] = multi_process.SOCKET_TMP_DIR = os.path.join(work, "sockets")
+    os.environ.pop("DLROVER_IPC_NAMESPACE", None)
+    try:
+        return _checkpoint_phase(work, job, device, small, n_params, timeout, run_bench)
+    finally:
+        for name, value in saved_env.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+        multi_process.SOCKET_TMP_DIR = saved_dir
+
+
+def _checkpoint_phase(work, job, device, small, n_params, timeout, run_bench):
+    import signal
+
+    from dlrover_tpu_torch.checkpoint.saver import AsyncCheckpointSaver, lock_name
+    from dlrover_tpu_torch.checkpoint.shm_handler import SharedMemoryHandler
+    from dlrover_tpu_torch.checkpoint.storage import PosixCheckpointStorage
+    from dlrover_tpu_torch.common import multi_process
+
+    ckpt, ref_ckpt = os.path.join(work, "ckpt"), os.path.join(work, "ref")
+
+    if n_params is not None:
+        image = 12 * n_params + 16  # fp32 params, mu and nu; step and count
+        free = shutil.disk_usage("/dev/shm").free
+        log(f"  /dev/shm free {free} bytes; one image {image} bytes (+ its JSON meta); "
+            f"two images at once (the reference trainer stages its own); cuts: none")
+        if free < 2.1 * image:
+            raise AssertionError("/dev/shm cannot hold two images of the train state")
+
+    def child(role, namespace=None, expect_kill=False, root=ckpt):
+        env = dict(os.environ)
+        if namespace:
+            env["DLROVER_IPC_NAMESPACE"] = namespace
+        cmd = [sys.executable, os.path.abspath(__file__), "--trainer", role, "--ckpt", root,
+               "--device", device] + (["--small"] if small else [])
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, env=env,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
+        ok_rc = -signal.SIGKILL if expect_kill else 0
+        if proc.returncode != ok_rc or not lines:
+            raise AssertionError(f"trainer {role} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        result = json.loads(lines[-1][len("RESULT "):])
+        log(f"  trainer {role}: {time.perf_counter() - t0:.1f} s, exit {proc.returncode}")
+        return result
+
+    def check(cond, msg):
+        if not cond:
+            raise AssertionError(msg)
+
+    AsyncCheckpointSaver.start_async_saving_ckpt()
+    try:
+        ref = child("reference", namespace=f"{job}_ref", root=ref_ckpt)
+        log(f"  uninterrupted losses {ref['losses']}")
+        check(ref["steps"] == LOOP_STEPS and ref["restored_step"] == -1, f"reference run {ref}")
+
+        killed = child("kill", expect_kill=True)
+        shm = SharedMemoryHandler(0)
+        meta = shm.read_meta()
+        tracker = PosixCheckpointStorage(ckpt).latest_step()
+        lock = multi_process.SharedLock(lock_name(0))
+        deadline = time.monotonic() + 30
+        while lock.locked() and time.monotonic() < deadline:
+            time.sleep(0.1)
+        lock_free = not lock.locked()
+        lock.close()
+        log(f"  killed at step {killed['killed_at']}: shm step {meta and meta.step}, "
+            f"storage tracker {tracker}, shard lock free {lock_free}")
+        check(meta is not None and meta.step == KILL_AT, f"shm holds {meta and meta.step}")
+        check(tracker == STORAGE_EVERY, f"storage tracker {tracker}")
+        check(lock_free, "the dead trainer's shard lock was not freed")
+
+        resumed = child("resume")
+        diffs = [abs(resumed["losses"][str(s)] - ref["losses"][str(s)])
+                 for s in range(KILL_AT + 1, LOOP_STEPS)]
+        bit_equal = all(resumed["losses"][str(s)] == ref["losses"][str(s)]
+                        for s in range(KILL_AT + 1, LOOP_STEPS))
+        log(f"  resumed from {resumed['restored_from']} at step {resumed['restored_step']}, "
+            f"hash equal {resumed.get('restored_hash') == killed['hash']}; losses "
+            f"{resumed['losses']}; max diff vs uninterrupted {max(diffs):.3e}, "
+            f"bit-equal {bit_equal}; launches {resumed['launches']}")
+        check(resumed["restored_step"] == KILL_AT, f"resumed at {resumed['restored_step']}")
+        check(resumed["restored_from"] in ("prefetch", "memory"), "not restored from shm")
+        check(resumed.get("restored_hash") == killed["hash"], "restored state differs from the killed one")
+        check(max(diffs) <= RESUME_LOSS_TOL, f"resumed losses differ by {max(diffs)}")
+        check(resumed["tracker"] == HASH_AT, f"storage tracker {resumed['tracker']}")
+        n = LOOP_STEPS - KILL_AT - 1
+        if device == "cuda":
+            per_step = {"fwd": 24, "bwd_dkdv": 12, "bwd_dq": 12}
+            check(resumed["launches"] == {k: v * n for k, v in per_step.items()},
+                  f"loop launches {resumed['launches']} over {n} steps")
+        failures = ref["stage_failures"] + killed["stage_failures"] + resumed["stage_failures"]
+        check(failures == 0, f"{failures} async stages failed")
+
+        shm.unlink()
+        restored = child("restore")
+        log(f"  after unlinking shm: restored step {restored['step']} from "
+            f"{restored['restored_from']}, hash equal {restored['hash'] == resumed['hashes'][str(HASH_AT)]}")
+        check(restored["step"] == HASH_AT and restored["restored_from"] == "storage",
+              f"storage rung restored {restored['step']} from {restored['restored_from']}")
+        check(restored["hash"] == resumed["hashes"][str(HASH_AT)], "storage restore differs")
+
+        numbers = child("bench") if run_bench else None
+        if numbers is not None:
+            check(numbers["stage_failures"] == 0, "async stages failed in the bench")
+        facts = {"resume_max_loss_diff": max(diffs), "resume_bit_equal": bit_equal,
+                 "restored_from": resumed["restored_from"], "storage_rung_step": restored["step"],
+                 "loop_launches": resumed["launches"], "loop_steps": n}
+        return facts, numbers
+    finally:
+        AsyncCheckpointSaver.shutdown()
+        for name in os.listdir("/dev/shm"):
+            if name.startswith(f"dlrover_{job}"):
+                os.unlink(os.path.join("/dev/shm", name))
+
+
+def main(argv=()) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--trainer", choices=("reference", "kill", "resume", "restore", "bench"),
+                        help="run one trainer process of the checkpoint phase")
+    parser.add_argument("--ckpt", help="checkpoint directory of the trainer")
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--small", action="store_true", help="2-layer model (tests)")
+    args = parser.parse_args(list(argv))
+    if args.trainer:
+        return trainer(args)
+    return smoke()
+
+
+def smoke() -> int:
     import torch
 
     from dlrover_tpu_torch.common.platform import strict_fp32
@@ -398,6 +848,17 @@ def main() -> int:
     log("main path: GPT-2 small flash train step")
     result = main_path(fa, gpt, train_step)
     log("main path: " + json.dumps(result))
+    torch.cuda.empty_cache()  # the trainers of phase 5 are other processes
+
+    log("checkpoint and elastic loop: GPT-2 small through ElasticTrainLoop, SIGKILL, resume")
+    work = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        facts, numbers = checkpoint_phase(
+            work, f"chip_smoke_{os.getpid()}_{int(time.time())}", n_params=result["n_params"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("checkpoint and elastic loop: " + json.dumps(facts))
+    numbers["main_path_step_s"] = result["step_s"]
 
     shape = {k: MAIN_SHAPE[k] for k in ("B", "T", "H", "D", "causal")}
     kernels = []
@@ -420,6 +881,7 @@ def main() -> int:
             **{key: binary[(name, shape["D"])][key]
                for key in ("registers", "spill_stores", "hgmma", "utmaldg")},
         })
+    print(json.dumps({"checkpoint": numbers}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -429,4 +891,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

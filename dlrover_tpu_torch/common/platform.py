@@ -38,3 +38,9 @@ def strict_fp32() -> None:
     decimal digits."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def not_ported(what: str) -> NotImplementedError:
+    """The error for a feature of the JAX package the port does not have
+    yet: asked for, it raises instead of being silently ignored."""
+    return NotImplementedError(f"{what} is not ported to dlrover_tpu_torch yet")

@@ -20,12 +20,24 @@ from dlrover_tpu_torch.ops import _build
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PORT = os.path.join(_REPO, "dlrover_tpu_torch")
-_FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "dlrover_tpu"}
+# msgpack: the GPU machine does not have it (the JAX package frames its IPC
+# with it; the port frames with the standard library)
+_FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "dlrover_tpu", "msgpack"}
+_POISON = (
+    "import sys\n"
+    f"for name in {sorted(_FORBIDDEN)!r}:\n"
+    "    sys.modules[name] = None  # any import of them now fails\n"
+)
+
+
+_SCRIPTS = [os.path.join(_REPO, "chip_smoke.py")] + [
+    os.path.join(_REPO, "scripts", name)
+    for name in ("torch_step_profile.py", "kernel_ab.py", "ckpt_overhead.py")
+]
 
 
 def _port_files():
-    files = [os.path.join(_REPO, "chip_smoke.py"),
-             os.path.join(_REPO, "scripts", "torch_step_profile.py")]
+    files = list(_SCRIPTS)
     for root, _, names in os.walk(_PORT):
         files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
     return files
@@ -33,7 +45,7 @@ def _port_files():
 
 def _module_names():
     names = []
-    for path in _port_files()[2:]:
+    for path in _port_files()[len(_SCRIPTS):]:
         rel = os.path.relpath(path, _REPO)[: -len(".py")].replace(os.sep, ".")
         names.append(rel[: -len(".__init__")] if rel.endswith(".__init__") else rel)
     return names
@@ -54,11 +66,18 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
     assert not found, found
 
 
+def test_the_scans_cover_the_checkpoint_and_loop_modules():
+    names = set(_module_names())
+    for module in ("common.multi_process", "common.config", "common.constants", "common.log",
+                   "checkpoint.meta", "checkpoint.shm_handler", "checkpoint.storage",
+                   "checkpoint.saver", "checkpoint.engine", "checkpoint.checkpointer",
+                   "trainer.elastic", "trainer.dataloader", "trainer.loop"):
+        assert f"dlrover_tpu_torch.{module}" in names
+
+
 def test_every_module_imports_with_jax_and_dlrover_tpu_poisoned():
     code = (
-        "import sys, importlib\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'dlrover_tpu'):\n"
-        "    sys.modules[name] = None  # any import of them now fails\n"
+        _POISON + "import importlib\n"
         f"for name in {_module_names()!r} + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "print('imported', len(sys.modules))\n"
@@ -71,6 +90,24 @@ def test_every_module_imports_with_jax_and_dlrover_tpu_poisoned():
     assert "imported" in proc.stdout
 
 
+def test_chip_smoke_trainer_runs_with_jax_and_msgpack_poisoned(tmp_path):
+    """A trainer process of the checkpoint phase (``chip_smoke.py --trainer``)
+    on the CPU at the small size: engine, saver, IPC and loop with JAX, the
+    JAX package and msgpack unimportable."""
+    code = (
+        _POISON + "import chip_smoke\n"
+        f"sys.exit(chip_smoke.main(['--trainer', 'restore', '--device', 'cpu', '--small', "
+        f"'--ckpt', {str(tmp_path / 'ckpt')!r}]))\n"
+    )
+    env = {**os.environ, "PYTHONPATH": _REPO, "DLROVER_JOB_NAME": f"rules_{os.getpid()}",
+           "DLROVER_IPC_DIR": str(tmp_path / "sockets")}
+    env.pop("DLROVER_IPC_NAMESPACE", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert '"step": -1' in proc.stdout and '"hash"' in proc.stdout
+
+
 @pytest.mark.parametrize(
     "module,counterpart",
     [
@@ -78,6 +115,12 @@ def test_every_module_imports_with_jax_and_dlrover_tpu_poisoned():
         ("ops/flash_attention.py", "dlrover_tpu/ops/flash_attention.py"),
         ("models/gpt.py", "dlrover_tpu/models/gpt.py"),
         ("parallel/train_step.py", "dlrover_tpu/parallel/train_step.py"),
+    ] + [
+        (f"{m}.py", f"dlrover_tpu/{m}.py")
+        for m in ("common/log", "common/constants", "common/config", "common/multi_process",
+                  "checkpoint/meta", "checkpoint/shm_handler", "checkpoint/storage",
+                  "checkpoint/saver", "checkpoint/engine", "checkpoint/checkpointer",
+                  "trainer/elastic", "trainer/dataloader", "trainer/loop")
     ],
 )
 def test_each_ported_module_names_its_counterpart(module, counterpart):
