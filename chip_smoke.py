@@ -31,7 +31,7 @@ and prints no result):
    checkpoint saver; trainers are child processes (``chip_smoke.py
    --trainer ROLE``) driving GPT-2 small at full width through
    ``ElasticTrainLoop`` (a stage to shm every step, a persist every 5):
-   an uninterrupted run of 12 steps in its own namespace; a run that stages
+   an uninterrupted run of 150 steps in its own namespace; a run that stages
    step 7 and dies by SIGKILL holding the shard lock (shm must hold step 7,
    storage step 5, and the lock must come free); a run that must restore
    step 7 from shm with the killed state's SHA-256, train steps 8-11 within
@@ -40,10 +40,29 @@ and prints no result):
    read step 10 from storage, hash-equal to what was staged; and a trainer
    that times the checkpoint (blocking and async saves, persist, restore,
    and the loop's step with a stage every step against the bare step).
+6. tpurun: the flagship command a user runs,
+   ``python3 -m dlrover_tpu_torch.launcher.elastic_run --standalone --nnodes
+   1 --nproc_per_node 1 -m dlrover_tpu_torch.examples.gpt_elastic``, with a
+   fresh job name, ``CKPT_DIR`` in a temporary directory, ``TOTAL_STEPS=150``
+   and the CLI's default intervals: the launcher spawns the standalone
+   master, the agent runs the saver and the worker trains GPT-2 small at
+   full width. Once the worker has staged step 10 or later, this process
+   SIGKILLs it (found through the agent's pidfile). The launcher must exit
+   0 and the master with SUCCEEDED; the agent must restart the worker once
+   (``DLROVER_RESTART_COUNT=1``) after its breakpoint save committed the
+   staged step; the new worker must restore that step from shm, redo no
+   step but the one in flight, load the kernel library from the build
+   cache, and every step of both workers must launch 24/12/12 flash kernels
+   with a finite loss within 1e-2 of phase 5's uninterrupted run; only the
+   worker may hold the GPU (no /dev/nvidia* open in the agent or the
+   master, at most this process's and the worker's contexts in
+   ``nvidia-smi``); afterwards no process and no shm segment of the job may
+   be left. The time to recover is split into detection, breakpoint
+   persist, respawn, shm restore and the first step after the resume.
 
-The output ends with the checkpoint numbers and the kernel table as one
-JSON line each, the card's name and power limit, and ``{"ok": true,
-"device": {...}}`` as the last line.
+The output ends with the checkpoint numbers, the ``tpurun`` timings and
+the kernel table as one JSON line each, the card's name and power limit,
+and ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 import dataclasses
@@ -386,7 +405,13 @@ def main_path(fa, gpt, train_step, n_steps=10, batch=8, seq=1024):
 # thread, and the trainers are separate OS processes (``chip_smoke.py
 # --trainer ROLE``) that connect to it under one fresh DLROVER_JOB_NAME.
 
-LOOP_STEPS = 12      # the uninterrupted trainer runs steps 0..11
+LOOP_STEPS = 12      # the killed and resumed trainers run steps 0..11
+# Phase 6's job; the uninterrupted (reference) trainer runs as many. On the
+# card a persist of the 1.49 GB image holds the shard lock for 6 s or more
+# while the job trains, 75 steps or more, and every stage in between is
+# skipped: the first stage at or after step 10 is the first storage step
+# after step 0's persist.
+TPURUN_STEPS = 150
 STORAGE_EVERY = 5    # storage steps 0, 5, 10; every step is staged to shm
 KILL_AT = 7          # the killed trainer dies after staging this step
 HASH_AT = 10         # the resumed trainer's last storage step
@@ -396,37 +421,15 @@ LOOP_BENCH_STEPS = 20
 
 
 def trainer_setup(small, device):
-    """(config, train state, step fn, batches) of the phase's trainers:
+    """(config, train state, step fn, batches) of the phase's trainers: the
+    flagship example's model and data (``examples/gpt_elastic.build``),
     GPT-2 small at full width (flash, remat, seq 1024, batch 8), or a
     2-layer model at embed 64 for the CPU tests. Weights from seed 0; the
     batch of step s is drawn from seed s, so any trainer can resume at any
     step with the same data."""
-    import numpy as np
-    import torch
+    from dlrover_tpu_torch.examples import gpt_elastic
 
-    from dlrover_tpu_torch.models import gpt
-    from dlrover_tpu_torch.parallel import train_step
-
-    if small:
-        cfg = gpt.GPTConfig(vocab_size=256, max_seq_len=32, num_layers=2, num_heads=4,
-                            head_dim=16, embed_dim=64, use_remat=True, attention_impl="flash")
-        batch, seq = 4, 32
-    else:
-        cfg = dataclasses.replace(gpt.GPTConfig.gpt2_small(), attention_impl="flash",
-                                  max_seq_len=1024, use_remat=True)
-        batch, seq = 8, 1024
-    model = gpt.GPT(cfg, device=device)
-    tx = train_step.default_optimizer()
-    state = train_step.init_train_state(
-        model, torch.zeros((batch, seq), dtype=torch.long), tx, device=device, seed=0)
-    step_fn = train_step.build_train_step(model, tx, gpt.cross_entropy_loss)
-
-    def batches(start, stop):
-        for s in range(start, stop):
-            t = torch.from_numpy(np.random.default_rng(s).integers(0, cfg.vocab_size, (batch, seq + 1)))
-            yield t[:, :-1], t[:, 1:]
-
-    return cfg, state, step_fn, batches
+    return gpt_elastic.build(small, device)
 
 
 def state_hash(state):
@@ -454,8 +457,10 @@ def emit(result):
 def trainer(args) -> int:
     """One trainer process of phase 5 (``--trainer ROLE``):
 
-    - ``reference``, ``resume``: run the loop to LOOP_STEPS and report the
-      losses, the restored state's hash and the flash launches;
+    - ``reference``: run the loop to TPURUN_STEPS uninterrupted (phase 6
+      compares with its losses too) and report the losses and launches;
+    - ``resume``: run the loop to LOOP_STEPS and report the losses, the
+      restored state's hash and the flash launches;
     - ``kill``: run the loop and, after staging KILL_AT, report the state's
       hash and die by SIGKILL while holding the shard lock;
     - ``restore``: restore through the loop only and report the hash;
@@ -487,9 +492,10 @@ def trainer(args) -> int:
 
     def on_step(step, loss):
         out["losses"][step] = float(loss)
-        if (step + 1) % STORAGE_EVERY == 0:
+        if (step + 1) % STORAGE_EVERY == 0 and args.trainer != "reference":
             # the next step persists: let this step's stage and the last
-            # persist finish, so that save is not skipped
+            # persist finish, so that save is not skipped (the reference
+            # needs only its losses: it runs at the flagship job's pace)
             if not (engine.wait_staged(600) and engine.wait_saving(600)):
                 raise RuntimeError(f"stage or persist before step {step + 1} failed")
         if step == HASH_AT:
@@ -497,15 +503,16 @@ def trainer(args) -> int:
         if args.trainer == "kill" and step == KILL_AT:
             die_staged(engine, step, live["state"], out)
 
-    loop = ElasticTrainLoop(engine, step_fn, max_steps=LOOP_STEPS, memory_every=1,
-                            storage_every=STORAGE_EVERY, log_every=LOOP_STEPS, on_step=on_step,
+    steps = TPURUN_STEPS if args.trainer == "reference" else LOOP_STEPS
+    loop = ElasticTrainLoop(engine, step_fn, max_steps=steps, memory_every=1,
+                            storage_every=STORAGE_EVERY, log_every=steps, on_step=on_step,
                             input_stage_fn=to_device(device), input_device=device)
     if args.trainer == "restore":
         start, restored = loop.restore(state)
         out.update(step=start - 1, restored_from=engine.restored_from, hash=state_hash(restored))
     else:
         fa.reset_launches()
-        loop.run(state, data_factory=lambda start: batches(start, LOOP_STEPS))
+        loop.run(state, data_factory=lambda start: batches(start, steps))
         out.update(restored_step=loop.start_step - 1, restored_from=engine.restored_from,
                    launches=dict(fa.launches), steps=len(out["losses"]),
                    stage_failures=engine.stage_failures,
@@ -736,7 +743,7 @@ def _checkpoint_phase(work, job, device, small, n_params, timeout, run_bench):
     try:
         ref = child("reference", namespace=f"{job}_ref", root=ref_ckpt)
         log(f"  uninterrupted losses {ref['losses']}")
-        check(ref["steps"] == LOOP_STEPS and ref["restored_step"] == -1, f"reference run {ref}")
+        check(ref["steps"] == TPURUN_STEPS and ref["restored_step"] == -1, f"reference run {ref}")
 
         killed = child("kill", expect_kill=True)
         shm = SharedMemoryHandler(0)
@@ -789,13 +796,369 @@ def _checkpoint_phase(work, job, device, small, n_params, timeout, run_bench):
             check(numbers["stage_failures"] == 0, "async stages failed in the bench")
         facts = {"resume_max_loss_diff": max(diffs), "resume_bit_equal": bit_equal,
                  "restored_from": resumed["restored_from"], "storage_rung_step": restored["step"],
-                 "loop_launches": resumed["launches"], "loop_steps": n}
+                 "loop_launches": resumed["launches"], "loop_steps": n,
+                 "reference_losses": ref["losses"]}
         return facts, numbers
     finally:
         AsyncCheckpointSaver.shutdown()
         for name in os.listdir("/dev/shm"):
             if name.startswith(f"dlrover_{job}"):
                 os.unlink(os.path.join("/dev/shm", name))
+
+
+# -- phase 6: the flagship command under its own agent -----------------------
+#
+# The user's command, ``elastic_run --standalone ... -m gpt_elastic``, runs as
+# a child of this process: the launcher spawns the standalone master, its
+# agent runs the saver and supervises the worker. Once the worker has
+# staged step TPURUN_KILL_AFTER or a later one (and is computing the next),
+# this process SIGKILLs the worker, found through the agent's pidfile.
+
+TPURUN_KILL_AFTER = 10
+TPURUN_LOSS_TOL = 1e-2
+FLAGSHIP = ["-m", "dlrover_tpu_torch.launcher.elastic_run", "--standalone", "--nnodes", "1",
+            "--nproc_per_node", "1", "-m", "dlrover_tpu_torch.examples.gpt_elastic"]
+
+
+class _JobOutput:
+    """Both pipes of the job, read line by line on two threads: every line,
+    the example's records (``gpt_elastic {json}``) and the agent's recovery
+    records (``agent recovery: {json}``)."""
+
+    def __init__(self, proc):
+        import threading
+
+        self.lock = threading.Lock()
+        self.lines, self.records, self.recoveries = [], [], []
+        self.threads = [threading.Thread(target=self._read, args=(pipe,), daemon=True)
+                        for pipe in (proc.stdout, proc.stderr)]
+        for t in self.threads:
+            t.start()
+
+    def _read(self, pipe):
+        for raw in iter(pipe.readline, ""):
+            line = raw.rstrip("\n")
+            with self.lock:
+                self.lines.append(line)
+                if line.startswith("gpt_elastic "):
+                    self.records.append(json.loads(line[len("gpt_elastic "):]))
+                m = re.search(r"agent recovery: (\{.*\})", line)
+                if m:
+                    self.recoveries.append(json.loads(m.group(1)))
+
+    def events(self, kind, pid=None):
+        with self.lock:
+            return [r for r in self.records if r["event"] == kind and pid in (None, r["pid"])]
+
+    def grep(self, pattern):
+        with self.lock:
+            return [m for m in (re.search(pattern, ln) for ln in self.lines) if m]
+
+    def join(self, timeout=30):
+        for t in self.threads:
+            t.join(timeout)
+
+
+def _proc_alive(pid):
+    from dlrover_tpu_torch.agent.worker import _proc_stat
+
+    info = _proc_stat(pid)
+    return info is not None and info[0] != "Z"
+
+
+def _proc_children(ppid):
+    """(pid, command line) of the live children of ``ppid``."""
+    out = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat", "rb") as f:
+                stat = f.read()
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if int(stat[stat.rindex(b")") + 2:].split()[1]) == ppid:
+            out.append((int(name), cmd))
+    return out
+
+
+def _group_members(pgids):
+    """Live pids whose process group is one of ``pgids``."""
+    found = []
+    for name in os.listdir("/proc"):
+        if name.isdigit():
+            try:
+                if os.getpgid(int(name)) in pgids and _proc_alive(int(name)):
+                    found.append(int(name))
+            except OSError:
+                continue
+    return found
+
+
+def _nvidia_fds(pid):
+    """The /dev/nvidia* files ``pid`` holds open: a process with a CUDA
+    context holds the device node (``nvidia-smi`` cannot name the pids of
+    a process in a container: it reports them in the host's pid
+    namespace)."""
+    held = set()
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia"):
+                held.add(target)
+    except OSError:
+        pass
+    return sorted(held)
+
+
+def _gpu_owners(device, agent_pid, master_pid, worker_pid):
+    """Who holds the GPU while the job runs: the worker must, the agent
+    (which runs the saver) and the master must not."""
+    owners = {"agent": _nvidia_fds(agent_pid), "master": _nvidia_fds(master_pid),
+              "worker": _nvidia_fds(worker_pid)}
+    if device == "cuda":
+        apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=60).stdout.strip().splitlines()
+        owners["nvidia_smi_compute_apps"] = apps
+    return owners
+
+
+def _uninterrupted_losses(work, job, device, small, total_steps, timeout):
+    """Losses of the example run alone (no agent, no fault) to the same
+    step: the reference when phase 5's reference trainer is not at hand."""
+    env = dict(os.environ, DLROVER_JOB_NAME=job, CKPT_DIR=os.path.join(work, "ref_ckpt"),
+               TOTAL_STEPS=str(total_steps), DLROVER_IPC_DIR=os.path.join(work, "ref_sockets"))
+    for name in ("DLROVER_MASTER_ADDR", "DLROVER_IPC_NAMESPACE"):
+        env.pop(name, None)
+    cmd = [sys.executable, "-m", "dlrover_tpu_torch.examples.gpt_elastic"] + (
+        ["--device", "cpu", "--small"] if small else [])
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, env=env,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+    finally:
+        for name in os.listdir("/dev/shm"):
+            if name.startswith(f"dlrover_{job}_"):
+                os.unlink(os.path.join("/dev/shm", name))
+    if proc.returncode != 0:
+        raise AssertionError(f"uninterrupted example exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    return {str(r["step"]): r["loss"] for r in
+            (json.loads(ln[len("gpt_elastic "):]) for ln in proc.stdout.splitlines()
+             if ln.startswith("gpt_elastic ")) if r["event"] == "step"}
+
+
+def tpurun_phase(work, job, device="cuda", small=False, total_steps=TPURUN_STEPS,
+                 reference=None, timeout=600, card=None):
+    """Phase 6: the flagship command, a worker SIGKILL, and its recovery
+    under the job's own agent. Raises on the first failed check; returns
+    the phase's facts and the ``tpurun`` timings. ``reference`` maps step
+    (as a string) to the loss of an uninterrupted run of the same
+    configuration; without it the example runs once alone first."""
+    import signal
+
+    from dlrover_tpu_torch.agent.worker import read_pidfile
+    from dlrover_tpu_torch.checkpoint.shm_handler import SharedMemoryHandler
+
+    def check(cond, msg):
+        if not cond:
+            raise AssertionError(msg)
+
+    if reference is None:
+        reference = _uninterrupted_losses(work, f"{job}_ref", device, small, total_steps, timeout)
+    ipc_dir = os.path.join(work, "sockets")
+    env = dict(os.environ, DLROVER_JOB_NAME=job, CKPT_DIR=os.path.join(work, "ckpt"),
+               TOTAL_STEPS=str(total_steps), DLROVER_IPC_DIR=ipc_dir)
+    for name in ("DLROVER_MASTER_ADDR", "DLROVER_IPC_NAMESPACE", "DLROVER_NODE_ID",
+                 "DLROVER_NODE_RANK"):
+        env.pop(name, None)
+    cmd = [sys.executable] + FLAGSHIP + (["--device", "cpu", "--small"] if small else [])
+    saved_ns = os.environ.get("DLROVER_IPC_NAMESPACE")
+    os.environ["DLROVER_IPC_NAMESPACE"] = job  # names this process's view of the job's shm
+    try:
+        shm = SharedMemoryHandler(0)
+    finally:
+        if saved_ns is None:
+            os.environ.pop("DLROVER_IPC_NAMESPACE", None)
+        else:
+            os.environ["DLROVER_IPC_NAMESPACE"] = saved_ns
+    t_launch = time.time()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=env, start_new_session=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    out = _JobOutput(proc)
+    deadline = time.monotonic() + timeout
+    pids = {"agent": proc.pid}
+    owners = []
+
+    def wait_for(what, cond, poll=0.01):
+        while True:
+            got = cond()
+            if got:
+                return got
+            if proc.poll() is not None or time.monotonic() > deadline:
+                why = "timed out" if proc.poll() is None else f"the job exited {proc.returncode}"
+                meta = shm.read_meta()
+                tail = [ln for ln in out.lines if "skip save_to_memory" not in ln][-60:]
+                raise AssertionError(f"{why} while waiting for {what} (shm holds step "
+                                     f"{meta and meta.step}):\n" + "\n".join(tail))
+            time.sleep(poll)
+
+    try:
+        pids["master"] = wait_for("the standalone master", lambda: next(
+            (p for p, c in _proc_children(proc.pid) if "dlrover_tpu_torch.master.main" in c), None),
+            poll=0.05)
+        boot0 = wait_for("the first worker's boot", lambda: out.events("boot"))[0]
+        recorded = read_pidfile(job)
+        check(recorded is not None and recorded[0] == boot0["pid"],
+              f"pidfile {recorded} does not name the worker {boot0['pid']}")
+        pids["worker0"] = boot0["pid"]
+        wait_for("the first step", lambda: out.events("step", boot0["pid"]), poll=0.05)
+        owners.append(_gpu_owners(device, proc.pid, pids["master"], boot0["pid"]))
+
+        def staged_and_computing_next():
+            # Stages are sparse (none while a persist holds the shard lock)
+            # and a stage (0.2 s) outlasts a step (0.08-0.12 s): when one
+            # lands, the next step may have finished unstaged. Kill when the
+            # staged step is at most one behind the last finished one, so
+            # that only that step, in flight to shm, is redone.
+            steps = out.events("step", boot0["pid"])
+            last = steps[-1]["step"] if steps else -1
+            if last < TPURUN_KILL_AFTER:
+                return None
+            meta = shm.read_meta()
+            if meta is not None and meta.step >= max(TPURUN_KILL_AFTER, last - 1):
+                return meta
+            return None
+
+        meta = wait_for(f"a staged step >= {TPURUN_KILL_AFTER}", staged_and_computing_next)
+        worker_pid = read_pidfile(job)[0]
+        check(worker_pid == boot0["pid"], f"pidfile names {worker_pid}, not {boot0['pid']}")
+        t_kill = time.time()
+        os.kill(worker_pid, signal.SIGKILL)
+        log(f"  SIGKILLed worker pid {worker_pid} with step {meta.step} staged")
+        boot1 = wait_for("the restarted worker's boot", lambda: (
+            out.events("boot")[1:] or None))[0]
+        pids["worker1"] = boot1["pid"]
+        wait_for("the restarted worker's first step", lambda: out.events("step", boot1["pid"]),
+                 poll=0.05)
+        owners.append(_gpu_owners(device, proc.pid, pids["master"], boot1["pid"]))
+        rc = proc.wait(max(1.0, deadline - time.monotonic()))
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(30)
+        for name in ("worker0", "worker1", "master"):
+            if name in pids and _proc_alive(pids[name]):
+                os.killpg(os.getpgid(pids[name]), signal.SIGKILL)
+        out.join()
+        shm.close()
+    t_end = time.time()
+    leaked = [p for p in pids.values() if _proc_alive(p)] + _group_members(
+        {pids[n] for n in ("worker0", "worker1") if n in pids})
+    segments = [n for n in os.listdir("/dev/shm") if n.startswith(f"dlrover_{job}_")]
+    for name in segments:
+        os.unlink(os.path.join("/dev/shm", name))
+    log("  job output (last lines):\n    " + "\n    ".join(out.lines[-12:]))
+
+    check(rc == 0, f"tpurun exited {rc}")
+    check(out.grep(r"job master exiting: succeeded"), "the master did not exit with SUCCEEDED")
+    master_rc = out.grep(r"standalone master pid=\d+ exited rc=(-?\d+)")
+    check(master_rc and master_rc[-1].group(1) == "0", "the standalone master did not exit 0")
+    boots = out.events("boot")
+    check(len(boots) == 2 and len(out.recoveries) == 1,
+          f"{len(boots)} worker boots and {len(out.recoveries)} recoveries, expected 2 and 1")
+    rec = out.recoveries[0]
+    check(rec["pid"] == worker_pid and rec["signal"] == signal.SIGKILL,
+          f"the agent saw {rec}, not the SIGKILL of {worker_pid}")
+    check([b["restart_count"] for b in boots] == [0, 1],
+          f"RESTART_COUNT seen {[b['restart_count'] for b in boots]}")
+    staged = rec.get("persisted_step", -1)
+    check(staged >= TPURUN_KILL_AFTER, f"breakpoint save persisted step {staged}")
+    check(boot1["tracker"] == staged,
+          f"storage held step {boot1['tracker']} at the restart, not the staged {staged}")
+    (resume,) = out.events("resume", boot1["pid"])
+    check(resume["restored_step"] == staged and resume["restored_from"] in ("prefetch", "memory"),
+          f"restored step {resume['restored_step']} from {resume['restored_from']}, "
+          f"expected {staged} from shm")
+    steps0 = {r["step"]: r for r in out.events("step", boot0["pid"])}
+    steps1 = {r["step"]: r for r in out.events("step", boot1["pid"])}
+    redone = sorted(set(steps0) & set(steps1))
+    check(sorted(steps0)[: staged + 1] == list(range(staged + 1)) and max(steps0) <= staged + 1,
+          f"first worker's steps {sorted(steps0)}")
+    check(sorted(steps1) == list(range(staged + 1, total_steps)),
+          f"restarted worker's steps {sorted(steps1)}")
+    check(set(redone) <= {staged + 1}, f"steps {redone} were redone")
+    diffs = {}
+    for s, r in list(steps0.items()) + list(steps1.items()):
+        check(math.isfinite(r["loss"]), f"non-finite loss at step {s}")
+        diffs[s] = max(diffs.get(s, 0.0), abs(r["loss"] - reference[str(s)]))
+    max_diff = max(diffs.values())
+    check(max_diff <= TPURUN_LOSS_TOL, f"losses differ from the uninterrupted run by {max_diff}")
+    if device == "cuda":
+        per_step = {"fwd": 24, "bwd_dkdv": 12, "bwd_dq": 12}
+        bad = [(s, r["launches"]) for s, r in list(steps0.items()) + list(steps1.items())
+               if r["launches"] != per_step]
+        check(not bad, f"steps with other flash launches than {per_step}: {bad[:3]}")
+        check(boot1["lib_cached"] is True, "the restarted worker built the kernel library again")
+    for seen in owners:
+        check(not seen["agent"] and not seen["master"],
+              f"the agent or the master holds the GPU: {seen}")
+        check(device != "cuda" or seen["worker"], f"the worker holds no GPU device: {seen}")
+        check(len(seen.get("nvidia_smi_compute_apps", [])) <= 2,
+              f"more CUDA contexts than this process and the worker: {seen}")
+    check(not leaked, f"processes of the job still alive: {leaked}")
+    check(not segments, f"shm segments of the job left behind: {segments}")
+
+    up = out.grep(r"standalone master at \S+ up in ([\d.]+) s")
+    rdzv = out.grep(r"world ready: round=0 .*\(rendezvous ([\d.]+) s\)")
+    spawn0 = out.grep(rf"started worker pid={boot0['pid']} restart=0 .* at ([\d.]+)")
+    first0 = steps0[0]
+    first1 = steps1[staged + 1]
+    (resume0,) = out.events("resume", boot0["pid"])
+
+    def boot_split(b):
+        return {"import_s": b["t_imported"] - b["t_start"], "cuda_init_s": b["t_cuda"] - b["t_imported"],
+                "engine_s": b["t_engine"] - b["t_cuda"], "lib_load_s": b["t_lib"] - b["t_engine"],
+                "model_build_s": b["t_model"] - b["t_lib"]}
+
+    restore_end = resume["t_loop"] + resume["restore_s"]
+    recovery = {
+        "detect_s": rec["detected"] - t_kill,
+        "breakpoint_persist_s": rec["persisted"] - rec["detected"],
+        "respawn_s": resume["t_loop"] - rec["persisted"],
+        "restore_s": resume["restore_s"],
+        "first_step_s": first1["t"] - restore_end,
+        "total_s": first1["t"] - t_kill,
+        "respawn_split": {"agent_s": rec["respawned"] - rec["persisted"],
+                          "rendezvous_s": rec["rdzv_s"],
+                          "interpreter_s": boot1["t_start"] - rec["respawned"],
+                          **boot_split(boot1)},
+    }
+    timings = {
+        "card": card, "model": "gpt2-small" if not small else "small",
+        "n_params": boot0["n_params"], "steps": total_steps, "killed_with_staged_step": staged,
+        "monitor_interval_s": 5.0,
+        "cold_start": {
+            "master_start_s": float(up[0].group(1)) if up else None,
+            "first_rendezvous_s": float(rdzv[0].group(1)) if rdzv else None,
+            "interpreter_s": boot0["t_start"] - float(spawn0[0].group(1)) if spawn0 else None,
+            **boot_split(boot0),
+            "first_step_s": first0["t"] - (resume0["t_loop"] + resume0["restore_s"]),
+            "launch_to_first_step_s": first0["t"] - t_launch,
+        },
+        "recovery": recovery,
+        "job_s": t_end - t_launch,
+    }
+    facts = {"restored_step": staged, "restored_from": resume["restored_from"],
+             "redone_steps": redone, "max_loss_diff": max_diff, "gpu_owners": owners,
+             "pids": pids}
+    return facts, timings
 
 
 def main(argv=()) -> int:
@@ -860,6 +1223,16 @@ def smoke() -> int:
     log("checkpoint and elastic loop: " + json.dumps(facts))
     numbers["main_path_step_s"] = result["step_s"]
 
+    log("tpurun: the flagship command, a worker SIGKILL and its recovery under its own agent")
+    work = tempfile.mkdtemp(prefix="chip_smoke_tpurun_")
+    try:
+        tpurun_facts, tpurun_times = tpurun_phase(
+            work, f"chip_smoke_tpurun_{os.getpid()}_{int(time.time())}",
+            reference=facts["reference_losses"], card=card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("tpurun: " + json.dumps(tpurun_facts))
+
     shape = {k: MAIN_SHAPE[k] for k in ("B", "T", "H", "D", "causal")}
     kernels = []
     for name, (nbytes, flops) in bounds(**shape).items():
@@ -882,6 +1255,7 @@ def smoke() -> int:
                for key in ("registers", "spill_stores", "hgmma", "utmaldg")},
         })
     print(json.dumps({"checkpoint": numbers}), flush=True)
+    print(json.dumps({"tpurun": tpurun_times}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

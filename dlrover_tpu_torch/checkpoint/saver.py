@@ -255,11 +255,15 @@ class AsyncCheckpointSaver:
                 if meta is None:
                     logger.warning("save event for step %s but shm is empty", step)
                     return
+                if self._persisted_steps.get(meta.step):
+                    # a breakpoint save that waited here for the event
+                    # loop's persist of the same step: written already
+                    return
                 if step >= 0 and meta.step != step:
                     logger.warning("shm holds step %s, save event wanted %s; persisting shm step",
                                    meta.step, step)
                 self.storage.write_shard(meta, self.shm.payload_reader(copy=False))
-            self._persisted_steps[meta.step] = True
+                self._persisted_steps[meta.step] = True
             committed = self.storage.commit(meta.step, self.num_hosts)
             # Clear the fail-fast marker only when this persist covers its
             # step: an older image in shm means the marked stage never

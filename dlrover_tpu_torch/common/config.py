@@ -2,19 +2,43 @@
 
 One process-wide ``Context`` whose fields are overridden from
 ``DLROVER_<UPPER_NAME>`` environment variables, as in the JAX package. It
-holds the knobs the checkpoint and the elastic loop read; the others come
-with the slices that read them.
+holds the knobs the checkpoint, the elastic loop, the control plane and
+the agent read, with the JAX package's defaults (the transport excepted:
+the port's master speaks HTTP); the others come with the slices that
+read them.
 """
 
 import os
 import threading
 from dataclasses import dataclass, fields
 
+from .constants import CommsType, DefaultValues
+
 _ENV_PREFIX = "DLROVER_"
 
 
 @dataclass
 class Context:
+    master_service_type: str = DefaultValues.SERVICE_TYPE
+    # Master RPC client: per-call deadline and the jittered exponential
+    # backoff between retries.
+    rpc_deadline_s: float = 30.0
+    rpc_retries: int = 3
+    rpc_backoff_base_s: float = 0.5
+    rpc_backoff_cap_s: float = 5.0
+    # Rendezvous
+    rdzv_timeout_s: float = DefaultValues.RDZV_TIMEOUT_S
+    rdzv_lastcall_s: float = DefaultValues.RDZV_LASTCALL_S
+    # Fault tolerance
+    max_relaunch_count: int = DefaultValues.MAX_RELAUNCH_COUNT
+    relaunch_always: bool = False
+    heartbeat_interval_s: float = DefaultValues.HEARTBEAT_INTERVAL_S
+    # the master marks a node dead after this long without a heartbeat
+    heartbeat_deadline_s: float = 600.0
+    # Orphan guard: the agent aborts after the master has been unreachable
+    # this long (0 disables).
+    master_lost_timeout_s: float = 600.0
+
     # The saver persists the staged step when it is asked to terminate
     # (SIGTERM: pod eviction, preemption).
     save_at_breakpoint: bool = True
@@ -45,6 +69,13 @@ class Context:
                 setattr(self, f.name, float(raw))
             else:
                 setattr(self, f.name, raw)
+
+    def master_comms(self) -> str:
+        """The transport the master and its clients use. Only HTTP is
+        ported; asking for gRPC raises where a server or client is built."""
+        if self.master_service_type not in (CommsType.GRPC, CommsType.HTTP):
+            return DefaultValues.SERVICE_TYPE
+        return self.master_service_type
 
     _singleton = None
     _lock = threading.Lock()

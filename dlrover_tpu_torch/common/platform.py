@@ -4,17 +4,20 @@ The JAX module pins JAX to virtual CPU devices for tests. The port's rule is
 simpler and stricter: entry points run on the GPU, run on the CPU only when
 the caller asks for it (the tests do), and raise when neither is possible,
 so that no run on a machine without a GPU passes itself off as a GPU run.
+
+torch is imported where it is used: the standalone master imports this
+module for ``not_ported`` and needs no torch (its import costs seconds).
 """
 
 from typing import Optional, Union
 
-import torch
 
-
-def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+def resolve_device(device: Optional[Union[str, "torch.device"]] = None) -> "torch.device":  # noqa: F821
     """``cuda:0`` when a GPU is present and ``device`` is None; the given
     device otherwise. Raises if a CUDA device is asked for (or implied) and
     there is none."""
+    import torch
+
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -36,6 +39,8 @@ def strict_fp32() -> None:
     """Keep fp32 matmuls and convolutions in full fp32 on the GPU: PyTorch
     otherwise runs cuDNN convolutions in TF32, which keeps about three
     decimal digits."""
+    import torch
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

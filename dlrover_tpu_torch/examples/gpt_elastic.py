@@ -1,0 +1,147 @@
+"""Elastic GPT-2 training with flash checkpointing, the flagship workflow:
+the port of the repository's ``examples/gpt_elastic.py``.
+
+Run on one host (the launcher spawns a standalone master):
+
+    python -m dlrover_tpu_torch.launcher.elastic_run --standalone --nnodes 1 \\
+        --nproc_per_node 1 -m dlrover_tpu_torch.examples.gpt_elastic
+
+GPT-2 small at full width (flash attention through the port's CUDA
+kernels, remat, seq 1024, batch 8) trains ``TOTAL_STEPS`` steps through
+``ElasticTrainLoop``, staging every step to shared memory and persisting
+every 5th to ``CKPT_DIR``. Weights come from seed 0 and the batch of step s
+from seed s, so a restarted worker resumes with exactly the data it would
+have seen. SIGKILL the worker mid-run: its agent persists the staged step,
+restarts it, and the new worker restores from shared memory.
+
+``--device cpu --small`` runs a 2-layer model on the CPU (the tests).
+Without ``--device cpu`` the script needs a GPU and fails without one.
+
+Each worker prints JSON lines prefixed ``gpt_elastic``: ``boot`` (restart
+count, start-up stamps, whether the kernel library came from the build
+cache, the storage tracker before the restore), ``resume`` (the step and
+rung of the restore), one ``step`` per step (loss, wall-clock stamp,
+flash launches of the step) and ``done``.
+"""
+
+import time
+
+T_START = time.time()  # before the imports: the worker's boot is timed from here
+
+import argparse  # noqa: E402
+import dataclasses  # noqa: E402
+import json  # noqa: E402
+import math  # noqa: E402
+import os  # noqa: E402
+import sys  # noqa: E402
+import tempfile  # noqa: E402
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from ..checkpoint.engine import CheckpointEngine  # noqa: E402
+from ..common.platform import resolve_device, strict_fp32  # noqa: E402
+from ..models import gpt  # noqa: E402
+from ..ops import _build  # noqa: E402
+from ..ops import flash_attention as fa  # noqa: E402
+from ..parallel import train_step  # noqa: E402
+from ..trainer.dataloader import to_device  # noqa: E402
+from ..trainer.elastic import ElasticContext  # noqa: E402
+from ..trainer.loop import ElasticTrainLoop  # noqa: E402
+
+STORAGE_EVERY = 5
+PREFIX = "gpt_elastic "
+
+
+def build(small: bool, device):
+    """(config, train state, step fn, batches): GPT-2 small at full width
+    (flash, remat, seq 1024, batch 8), or a 2-layer model at embed 64 for
+    the CPU tests. Weights from seed 0; ``batches(start, stop)`` yields the
+    batch of step s drawn from seed s."""
+    if small:
+        cfg = gpt.GPTConfig(vocab_size=256, max_seq_len=32, num_layers=2, num_heads=4,
+                            head_dim=16, embed_dim=64, use_remat=True, attention_impl="flash")
+        batch, seq = 4, 32
+    else:
+        cfg = dataclasses.replace(gpt.GPTConfig.gpt2_small(), attention_impl="flash",
+                                  max_seq_len=1024, use_remat=True)
+        batch, seq = 8, 1024
+    model = gpt.GPT(cfg, device=device)
+    tx = train_step.default_optimizer()
+    state = train_step.init_train_state(model, torch.zeros((batch, seq), dtype=torch.long), tx,
+                                        device=device, seed=0)
+    step_fn = train_step.build_train_step(model, tx, gpt.cross_entropy_loss)
+
+    def batches(start, stop):
+        for s in range(start, stop):
+            t = torch.from_numpy(
+                np.random.default_rng(s).integers(0, cfg.vocab_size, (batch, seq + 1)))
+            yield t[:, :-1], t[:, 1:]
+
+    return cfg, state, step_fn, batches
+
+
+def emit(event: str, **fields) -> None:
+    print(PREFIX + json.dumps({"event": event, "pid": os.getpid(), **fields}), flush=True)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--device", default=None,
+                        help="cpu to run on the CPU (default: the GPU, which must exist)")
+    parser.add_argument("--small", action="store_true", help="2-layer model (tests)")
+    args = parser.parse_args(argv)
+    total_steps = int(os.environ.get("TOTAL_STEPS", "200"))
+    ckpt_dir = os.environ.get("CKPT_DIR", os.path.join(tempfile.gettempdir(), "gpt_elastic_ckpt"))
+    t_imported = time.time()
+
+    ctx = ElasticContext.from_env()
+    ctx.initialize()
+    device = resolve_device(args.device)  # raises without a GPU unless --device cpu
+    lib_cached = None
+    if device.type == "cuda":
+        strict_fp32()
+        torch.empty(1, device=device)  # the CUDA context
+    t_cuda = time.time()
+    # the engine first: its prefetch of a staged image overlaps the rest
+    engine = CheckpointEngine(ckpt_dir)
+    tracker = engine.storage.latest_step()
+    t_engine = time.time()
+    if device.type == "cuda":
+        lib_cached = os.path.exists(_build.library_path("flash_attention"))
+        fa._lib()
+    t_lib = time.time()
+    cfg, state, inner_step, batches = build(args.small, device)
+    t_model = time.time()
+    emit("boot", restart_count=ctx.restart_count, process_id=ctx.process_id,
+         world_size=ctx.num_processes, device=str(device), lib_cached=lib_cached,
+         tracker=tracker, t_start=T_START, t_imported=t_imported, t_cuda=t_cuda,
+         t_engine=t_engine, t_lib=t_lib,
+         t_model=t_model, n_params=sum(p.numel() for p in state.params.values()))
+
+    launches = dict(fa.launches)
+
+    def on_step(step, loss):
+        loss = float(loss)  # synchronises: the stamp is the step's end
+        now = time.time()
+        if step == loop.start_step:
+            emit("resume", restored_step=loop.start_step - 1, restored_from=engine.restored_from,
+                 restore_s=loop.last_restore_s, t_loop=t_loop)
+        per_step = {k: fa.launches[k] - launches[k] for k in launches}
+        launches.update(fa.launches)
+        emit("step", step=step, loss=loss, t=now, launches=per_step)
+        if not math.isfinite(loss):
+            raise RuntimeError(f"non-finite loss {loss} at step {step}")
+
+    loop = ElasticTrainLoop(engine, inner_step, ctx=ctx, max_steps=total_steps, memory_every=1,
+                            storage_every=STORAGE_EVERY, log_every=10, on_step=on_step,
+                            input_stage_fn=to_device(device), input_device=device)
+    t_loop = time.time()
+    loop.run(state, data_factory=lambda start: batches(start, total_steps))
+    engine.close()
+    emit("done", steps=total_steps, stage_failures=engine.stage_failures)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

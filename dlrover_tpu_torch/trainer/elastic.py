@@ -3,20 +3,23 @@
 
 The agent hands the process its place in the world through the
 ``NodeEnv`` variables. The port runs one process on one GPU: a world of
-several processes (``torch.distributed``) and the master's RPC client come
-with later slices and raise "not ported" when configured. Without a master,
-step reports are no-ops.
+several processes (``torch.distributed``) comes with a later slice and
+raises "not ported" when configured. With a master
+(``DLROVER_MASTER_ADDR``), step reports feed its step monitor through the
+port's ``MasterClient``; without one they are no-ops.
 """
 
 import os
 import time
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 from ..common.constants import NodeEnv
 from ..common.log import logger
 from ..common.platform import not_ported
+from ..rpc.client import MasterClient
 
 
 @dataclass
@@ -33,6 +36,7 @@ class ElasticContext:
     job_name: str = "local_job"
     auto_tunning: bool = False
 
+    _client: Optional[MasterClient] = None
     _step_t0: float = 0.0
 
     @property
@@ -69,18 +73,31 @@ class ElasticContext:
         logger.info("single-process world")
 
     @property
-    def client(self):
-        """The master's RPC client: None without a master."""
-        if self.master_addr:
-            raise not_ported(f"the master RPC client (master at {self.master_addr})")
-        return None
+    def client(self) -> Optional[MasterClient]:
+        """The master's RPC client: None without a master; the process
+        singleton when the master is the environment's."""
+        if self._client is None and self.master_addr:
+            if os.environ.get(NodeEnv.MASTER_ADDR) == self.master_addr:
+                self._client = MasterClient.singleton()
+            else:
+                self._client = MasterClient(self.master_addr, node_id=self.node_id)
+        return self._client
 
     def report_step(self, step: int, elapsed_s: float = 0.0, tokens_per_s: float = 0.0) -> None:
-        """Feed the master's step monitor; a no-op without a master. Drops the
-        timer of :meth:`start_step_timer` either way."""
+        """Feed the master's step monitor; a no-op without a master. When
+        :meth:`start_step_timer` ran for this step, the elapsed time is
+        filled in. A failed report is logged, never raised: the control
+        plane must not stop training."""
+        if elapsed_s == 0.0 and self._step_t0 > 0.0:
+            elapsed_s = time.monotonic() - self._step_t0
         self._step_t0 = 0.0
-        if self.master_addr:
-            raise not_ported(f"step reports to the master at {self.master_addr}")
+        if self.client is None:
+            return
+        try:
+            self.client.report_training_step(step=step, elapsed_s=elapsed_s,
+                                             tokens_per_s=tokens_per_s)
+        except Exception as e:  # noqa: BLE001
+            logger.debug("step report failed: %s", e)
 
     def start_step_timer(self) -> None:
         self._step_t0 = time.monotonic()

@@ -20,9 +20,10 @@ from dlrover_tpu_torch.ops import _build
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PORT = os.path.join(_REPO, "dlrover_tpu_torch")
-# msgpack: the GPU machine does not have it (the JAX package frames its IPC
-# with it; the port frames with the standard library)
-_FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "dlrover_tpu", "msgpack"}
+# msgpack and grpc: the GPU machine has neither (the JAX package frames its
+# IPC with msgpack and serves its master over gRPC; the port uses JSON and
+# HTTP from the standard library)
+_FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "dlrover_tpu", "msgpack", "grpc"}
 _POISON = (
     "import sys\n"
     f"for name in {sorted(_FORBIDDEN)!r}:\n"
@@ -66,6 +67,17 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
     assert not found, found
 
 
+_CONTROL_PLANE = (
+    "common/serialize", "common/comm", "common/node", "rpc/server", "rpc/client",
+    "master/kv_store", "master/rdzv/manager", "master/diagnosis/action", "master/job_context",
+    "master/node/job_manager", "master/monitor/perf_monitor", "master/servicer",
+    "master/local_master", "master/args", "master/main", "agent/config", "agent/worker",
+    "agent/rendezvous", "agent/diagnosis_agent", "agent/training_agent",
+    "diagnosis/inference_chain", "diagnosis/operators", "diagnosis/diagnostician",
+    "launcher/elastic_run", "launcher/main",
+)
+
+
 def test_the_scans_cover_the_checkpoint_and_loop_modules():
     names = set(_module_names())
     for module in ("common.multi_process", "common.config", "common.constants", "common.log",
@@ -73,6 +85,16 @@ def test_the_scans_cover_the_checkpoint_and_loop_modules():
                    "checkpoint.saver", "checkpoint.engine", "checkpoint.checkpointer",
                    "trainer.elastic", "trainer.dataloader", "trainer.loop"):
         assert f"dlrover_tpu_torch.{module}" in names
+
+
+def test_the_scans_cover_the_control_plane_agent_and_launcher():
+    names = set(_module_names())
+    for module in _CONTROL_PLANE + ("examples/gpt_elastic",):
+        assert "dlrover_tpu_torch." + module.replace("/", ".") in names
+    for package in ("rpc", "master", "agent", "diagnosis", "launcher", "examples"):
+        assert f"dlrover_tpu_torch.{package}" in names
+    # phase 6 of chip_smoke.py is in the scanned script
+    assert "def tpurun_phase" in open(_SCRIPTS[0]).read()
 
 
 def test_every_module_imports_with_jax_and_dlrover_tpu_poisoned():
@@ -88,6 +110,36 @@ def test_every_module_imports_with_jax_and_dlrover_tpu_poisoned():
     )
     assert proc.returncode == 0, proc.stderr
     assert "imported" in proc.stdout
+
+
+def test_launcher_master_and_example_run_with_jax_grpc_and_msgpack_poisoned(tmp_path):
+    """The flagship entry points, each in a process where JAX, the JAX
+    package, msgpack and grpc cannot be imported: the launcher parses its
+    flags, the master serves and ends a job, the example trains on the CPU."""
+    env = {**os.environ, "PYTHONPATH": _REPO, "DLROVER_JOB_NAME": f"rules_fl_{os.getpid()}",
+           "DLROVER_IPC_DIR": str(tmp_path / "sockets"), "CKPT_DIR": str(tmp_path / "ckpt"),
+           "TOTAL_STEPS": "2"}
+    env.pop("DLROVER_IPC_NAMESPACE", None)
+    code = (
+        _POISON + "import runpy\n"
+        "from dlrover_tpu_torch.launcher import elastic_run\n"
+        "elastic_run.config_from_args(elastic_run.parse_args(['-m', 'x']))\n"
+        "from dlrover_tpu_torch.master.local_master import LocalJobMaster\n"
+        "from dlrover_tpu_torch.rpc.client import MasterClient\n"
+        "m = LocalJobMaster(); m.prepare()\n"
+        "c = MasterClient(m.addr, node_id=0)\n"
+        "assert c.join_rendezvous(0, 1, 'training') == 0\n"
+        "m.stop()\n"
+        "sys.argv = ['gpt_elastic', '--device', 'cpu', '--small']\n"
+        "runpy.run_module('dlrover_tpu_torch.examples.gpt_elastic', run_name='__main__')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert '"event": "done"' in proc.stdout
+    for name in os.listdir("/dev/shm"):
+        if name.startswith(f"dlrover_{env['DLROVER_JOB_NAME']}"):
+            os.unlink(os.path.join("/dev/shm", name))
 
 
 def test_chip_smoke_trainer_runs_with_jax_and_msgpack_poisoned(tmp_path):
@@ -120,8 +172,8 @@ def test_chip_smoke_trainer_runs_with_jax_and_msgpack_poisoned(tmp_path):
         for m in ("common/log", "common/constants", "common/config", "common/multi_process",
                   "checkpoint/meta", "checkpoint/shm_handler", "checkpoint/storage",
                   "checkpoint/saver", "checkpoint/engine", "checkpoint/checkpointer",
-                  "trainer/elastic", "trainer/dataloader", "trainer/loop")
-    ],
+                  "trainer/elastic", "trainer/dataloader", "trainer/loop") + _CONTROL_PLANE
+    ] + [("examples/gpt_elastic.py", "examples/gpt_elastic.py")],
 )
 def test_each_ported_module_names_its_counterpart(module, counterpart):
     path = os.path.join(_PORT, module)

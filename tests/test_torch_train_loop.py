@@ -125,7 +125,11 @@ def test_elastic_loop_matches_the_jax_step(tmp_path, jax_run):
 def test_restart_in_the_middle_continues_the_same_losses(tmp_path, jax_run, rung):
     params0, jax_losses = jax_run
     loop, engine, state, _ = _port_loop(tmp_path, 3, params0)
+    # step 2 persists only if step 1's stage and step 0's persist are done
+    # (a busy persister skips the save); on a loaded box they may not be
+    loop.on_step = lambda s, loss: s != 1 or (engine.wait_staged(60) and engine.wait_saving(60))
     loop.run(state, data_factory=_torch_batches)
+    assert engine.storage.latest_step() == 2
     engine.close()
     if rung == "storage":
         from dlrover_tpu_torch.checkpoint.shm_handler import SharedMemoryHandler
@@ -286,11 +290,20 @@ def test_elastic_context_from_env(monkeypatch):
     ctx.initialize()
 
 
-def test_elastic_context_features_not_ported_yet_raise():
+def test_elastic_context_features_not_ported_yet_raise(monkeypatch):
+    from dlrover_tpu_torch.rpc.client import MasterClient
+
     with pytest.raises(NotImplementedError, match="not ported"):
         elastic.ElasticContext(num_processes=2).initialize()
-    ctx = elastic.ElasticContext(master_addr="127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ctx.report_step(1)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ctx.client  # noqa: B018
+    # the master client is ported over HTTP; the gRPC transport is not
+    monkeypatch.setenv("DLROVER_MASTER_ADDR", "127.0.0.1:1")
+    monkeypatch.setenv("DLROVER_MASTER_SERVICE_TYPE", "grpc")
+    MasterClient.reset_singleton()
+    try:
+        ctx = elastic.ElasticContext(master_addr="127.0.0.1:1")
+        with pytest.raises(NotImplementedError, match="not ported"):
+            ctx.client  # noqa: B018
+        with pytest.raises(NotImplementedError, match="not ported"):
+            ctx.report_step(1)
+    finally:
+        MasterClient.reset_singleton()
