@@ -31,7 +31,7 @@ and prints no result):
    checkpoint saver; trainers are child processes (``chip_smoke.py
    --trainer ROLE``) driving GPT-2 small at full width through
    ``ElasticTrainLoop`` (a stage to shm every step, a persist every 5):
-   an uninterrupted run of 150 steps in its own namespace; a run that stages
+   an uninterrupted run of 30 steps in its own namespace; a run that stages
    step 7 and dies by SIGKILL holding the shard lock (shm must hold step 7,
    storage step 5, and the lock must come free); a run that must restore
    step 7 from shm with the killed state's SHA-256, train steps 8-11 within
@@ -39,26 +39,40 @@ and prints no result):
    no failed async stage; with the segment unlinked, a restore that must
    read step 10 from storage, hash-equal to what was staged; and a trainer
    that times the checkpoint (blocking and async saves, persist, restore,
-   and the loop's step with a stage every step against the bare step).
-6. tpurun: the flagship command a user runs,
+   and the loop's step with a stage every step against the bare step);
+   it prints each persist's shard-lock hold (the copy out of shm) and
+   write, and the stages the trainers skipped;
+6. tpurun, twice: the flagship command a user runs,
    ``python3 -m dlrover_tpu_torch.launcher.elastic_run --standalone --nnodes
    1 --nproc_per_node 1 -m dlrover_tpu_torch.examples.gpt_elastic``, with a
-   fresh job name, ``CKPT_DIR`` in a temporary directory, ``TOTAL_STEPS=150``
+   fresh job name, ``CKPT_DIR`` in a temporary directory, ``TOTAL_STEPS=30``
    and the CLI's default intervals: the launcher spawns the standalone
-   master, the agent runs the saver and the worker trains GPT-2 small at
-   full width. Once the worker has staged step 10 or later, this process
-   SIGKILLs it (found through the agent's pidfile). The launcher must exit
-   0 and the master with SUCCEEDED; the agent must restart the worker once
+   master, the agent runs the saver and keeps a warm spare, and the worker
+   trains GPT-2 small at full width. Run A is the command as typed (the
+   spare on, the default); run B is the same launcher with
+   ``ElasticLaunchConfig(warm_spare=False)`` (``chip_smoke.py
+   --tpurun-no-spare <launcher arguments>``). Once the worker has staged
+   step 10 or later (by step 18), this process SIGKILLs it (found through
+   the agent's pidfile). The launcher must exit 0 and the master with
+   SUCCEEDED; the agent must restart the worker once
    (``DLROVER_RESTART_COUNT=1``) after its breakpoint save committed the
-   staged step; the new worker must restore that step from shm, redo no
-   step but the one in flight, load the kernel library from the build
-   cache, and every step of both workers must launch 24/12/12 flash kernels
-   with a finite loss within 1e-2 of phase 5's uninterrupted run; only the
-   worker may hold the GPU (no /dev/nvidia* open in the agent or the
-   master, at most this process's and the worker's contexts in
-   ``nvidia-smi``); afterwards no process and no shm segment of the job may
-   be left. The time to recover is split into detection, breakpoint
-   persist, respawn, shm restore and the first step after the resume.
+   staged step, by adopting the ready spare in run A ("warm": the spare
+   held no /dev/nvidia* before, and the next spare follows about
+   ``SPARE_SPAWN_DELAY_S`` later) and by a cold start in run B; the new
+   worker must restore that step from shm, redo no step but the one in
+   flight, load the kernel library from the build cache, and every step of
+   both workers must launch 24/12/12 flash kernels with a finite loss
+   within 1e-2 of phase 5's uninterrupted run; only the worker may hold the
+   GPU (no /dev/nvidia* open in the agent, the master or a spare, at most
+   this process's and the worker's contexts in ``nvidia-smi``); afterwards
+   no process (worker, spare, agent, master) and no shm segment of the job
+   may be left. The time to recover is split into detection, breakpoint
+   persist, respawn (hand-off or interpreter, imports, CUDA init, engine,
+   library, model build), shm restore and the first step after the resume
+   (forward, backward, optimizer, loss fetch, first stage), and printed
+   for both runs side by side with the persists, the skipped stages, the
+   staged step's lag at the kill, the agent's peak RSS, the spare's RSS and
+   the step time while a spare imports.
 
 The output ends with the checkpoint numbers, the ``tpurun`` timings and
 the kernel table as one JSON line each, the card's name and power limit,
@@ -406,12 +420,11 @@ def main_path(fa, gpt, train_step, n_steps=10, batch=8, seq=1024):
 # --trainer ROLE``) that connect to it under one fresh DLROVER_JOB_NAME.
 
 LOOP_STEPS = 12      # the killed and resumed trainers run steps 0..11
-# Phase 6's job; the uninterrupted (reference) trainer runs as many. On the
-# card a persist of the 1.49 GB image holds the shard lock for 6 s or more
-# while the job trains, 75 steps or more, and every stage in between is
-# skipped: the first stage at or after step 10 is the first storage step
-# after step 0's persist.
-TPURUN_STEPS = 150
+# Phase 6's job; the uninterrupted (reference) trainer runs as many. A
+# persist holds the shard lock only for its copy out of shm, so stages go
+# on while it writes and a stage at or after step 10 lands within a few steps
+# of step 10.
+TPURUN_STEPS = 30
 STORAGE_EVERY = 5    # storage steps 0, 5, 10; every step is staged to shm
 KILL_AT = 7          # the killed trainer dies after staging this step
 HASH_AT = 10         # the resumed trainer's last storage step
@@ -515,7 +528,8 @@ def trainer(args) -> int:
         loop.run(state, data_factory=lambda start: batches(start, steps))
         out.update(restored_step=loop.start_step - 1, restored_from=engine.restored_from,
                    launches=dict(fa.launches), steps=len(out["losses"]),
-                   stage_failures=engine.stage_failures,
+                   stage_failures=engine.stage_failures, skipped=engine.skipped_stages,
+                   storage_wait_s=engine.storage_wait_s,
                    tracker=engine.storage.latest_step(), staged=engine.shm.read_meta().step)
     emit(out)
     engine.close()
@@ -541,7 +555,8 @@ def die_staged(engine, step, state, out):
     meta = engine.shm.read_meta()
     if meta is None or meta.step != step:
         raise RuntimeError(f"could not stage step {step}")
-    out.update(killed_at=step, hash=state_hash(state), stage_failures=engine.stage_failures)
+    out.update(killed_at=step, hash=state_hash(state), stage_failures=engine.stage_failures,
+               skipped=engine.skipped_stages)
     emit(out)
     if not engine._shard_lock.acquire(timeout=60):
         raise RuntimeError("shard lock busy")
@@ -794,10 +809,23 @@ def _checkpoint_phase(work, job, device, small, n_params, timeout, run_bench):
         numbers = child("bench") if run_bench else None
         if numbers is not None:
             check(numbers["stage_failures"] == 0, "async stages failed in the bench")
+        # this process's saver: the shard lock's hold (the copy out of shm)
+        # and the write of each persist, and the stages the trainers skipped
+        persists = list(AsyncCheckpointSaver._instance.persist_stats)
+        skipped = {role: r["skipped"] for role, r in
+                   (("reference", ref), ("kill", killed), ("resume", resumed))}
+        log(f"  persists (step, lock hold s, write s): "
+            f"{[(p['step'], round(p['hold_s'], 4), round(p['write_s'], 3)) for p in persists]}")
+        log(f"  stages skipped: {skipped}")
         facts = {"resume_max_loss_diff": max(diffs), "resume_bit_equal": bit_equal,
                  "restored_from": resumed["restored_from"], "storage_rung_step": restored["step"],
                  "loop_launches": resumed["launches"], "loop_steps": n,
-                 "reference_losses": ref["losses"]}
+                 "reference_losses": ref["losses"], "persists": persists,
+                 "skipped_stages": skipped}
+        if numbers is not None:
+            numbers["persist_lock_hold_s"] = [p["hold_s"] for p in persists]
+            numbers["persist_write_s"] = [p["write_s"] for p in persists]
+            numbers["skipped_stages"] = skipped
         return facts, numbers
     finally:
         AsyncCheckpointSaver.shutdown()
@@ -815,6 +843,10 @@ def _checkpoint_phase(work, job, device, small, n_params, timeout, run_bench):
 # this process SIGKILLs the worker, found through the agent's pidfile.
 
 TPURUN_KILL_AFTER = 10
+# the phase fails if the staged step that meets the kill's condition comes
+# later than this: with the persist off the shard lock, stages land within a
+# few steps of step 10
+TPURUN_KILL_BY = 18
 TPURUN_LOSS_TOL = 1e-2
 FLAGSHIP = ["-m", "dlrover_tpu_torch.launcher.elastic_run", "--standalone", "--nnodes", "1",
             "--nproc_per_node", "1", "-m", "dlrover_tpu_torch.examples.gpt_elastic"]
@@ -953,15 +985,146 @@ def _uninterrupted_losses(work, job, device, small, total_steps, timeout):
              if ln.startswith("gpt_elastic ")) if r["event"] == "step"}
 
 
+# /proc/<pid>/status fields the memory report reads, where the kernel has
+# them: the resident set, its peak, and its anonymous, file-backed (the
+# libraries torch maps) and shared-memory parts; and from /proc/<pid>/statm
+# the resident pages and those of them backed by a file or shared memory
+# ("StatmShared"), for kernels whose status has no split
+MEM_FIELDS = ("VmRSS", "VmHWM", "RssAnon", "RssFile", "RssShmem")
+
+
+class _Watch:
+    """Samples, every 0.1 s on a thread, the agent's memory
+    (``MEM_FIELDS``) and its warm spares: when each was first seen, when it
+    wrote its ready marker (the marker's mtime), the /dev/nvidia* files it
+    holds while it is still a spare (the marker exists before and after the
+    sample) and its memory then."""
+
+    def __init__(self, agent_pid):
+        import threading
+
+        self.agent_pid = agent_pid
+        self.lock = threading.Lock()
+        self.spares = {}
+        self.agent_mem = []  # (wall-clock, {field: kB})
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    @staticmethod
+    def _mem_kb(pid):
+        """{field: kB} of ``MEM_FIELDS`` that /proc/<pid>/status has."""
+        found = {}
+        try:
+            with open(f"/proc/{pid}/status") as f:
+                for line in f:
+                    key, _, rest = line.partition(":")
+                    if key in MEM_FIELDS:
+                        found[key] = int(rest.split()[0])
+        except (OSError, ValueError, IndexError):
+            pass
+        try:
+            with open(f"/proc/{pid}/statm") as f:
+                fields = f.read().split()
+            page_kb = os.sysconf("SC_PAGE_SIZE") // 1024
+            found["StatmResident"] = int(fields[1]) * page_kb
+            found["StatmShared"] = int(fields[2]) * page_kb
+        except (OSError, ValueError, IndexError):
+            pass
+        return found
+
+    @staticmethod
+    def _ready_file(pid):
+        try:
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                for item in f.read().split(b"\0"):
+                    if item.startswith(b"DLROVER_WARM_READY_FILE="):
+                        return item.split(b"=", 1)[1].decode()
+        except OSError:
+            pass
+        return None
+
+    def _sample(self):
+        now = time.time()
+        mem = self._mem_kb(self.agent_pid)
+        if mem:
+            with self.lock:
+                self.agent_mem.append((now, mem))
+        for pid, cmd in _proc_children(self.agent_pid):
+            if "dlrover_tpu_torch.agent.warm_worker" not in cmd:
+                continue
+            with self.lock:
+                rec = self.spares.setdefault(pid, {"pid": pid, "seen": now, "ready": None,
+                                                   "ready_file": None, "nvidia_fds": [],
+                                                   "samples": 0, "mem_kb": {}})
+            if rec["ready_file"] is None:
+                rec["ready_file"] = self._ready_file(pid)
+            marker = rec["ready_file"]
+            if not marker or not os.path.exists(marker):
+                continue
+            try:
+                ready = os.stat(marker).st_mtime
+            except OSError:
+                continue
+            fds = _nvidia_fds(pid)
+            mem = self._mem_kb(pid)
+            if os.path.exists(marker):  # still a spare after the sample
+                with self.lock:
+                    rec["ready"] = rec["ready"] or ready
+                    rec["nvidia_fds"] = sorted(set(rec["nvidia_fds"]) | set(fds))
+                    rec["samples"] += 1
+                    for key, kb in mem.items():
+                        rec["mem_kb"][key] = max(rec["mem_kb"].get(key, 0), kb)
+
+    def _run(self):
+        while not self._stop.wait(0.1):
+            try:
+                self._sample()
+            except Exception as e:  # noqa: BLE001 — a sampler must not end the phase
+                log(f"  watch: sample failed: {e!r}")
+
+    def ready_spares(self):
+        """The spares whose marker exists now: ready and not adopted."""
+        with self.lock:
+            return [dict(r) for r in self.spares.values()
+                    if r["ready_file"] and os.path.exists(r["ready_file"])]
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(10)
+
+
+def _no_spare_entry(argv) -> int:
+    """``chip_smoke.py --tpurun-no-spare <launcher arguments>``: the
+    launcher's ``run`` with ``ElasticLaunchConfig(warm_spare=False)``, the
+    caller's way to turn the spare off (there is no flag for it)."""
+    from dlrover_tpu_torch.launcher import elastic_run
+
+    ns = elastic_run.parse_args(argv)
+    config = elastic_run.config_from_args(ns)
+    config.warm_spare = False
+    return elastic_run.run(ns, config)
+
+
+def _median(values):
+    return statistics.median(values) if values else None
+
+
 def tpurun_phase(work, job, device="cuda", small=False, total_steps=TPURUN_STEPS,
-                 reference=None, timeout=600, card=None):
+                 reference=None, timeout=600, card=None, warm_spare=True, job_log=None):
     """Phase 6: the flagship command, a worker SIGKILL, and its recovery
-    under the job's own agent. Raises on the first failed check; returns
-    the phase's facts and the ``tpurun`` timings. ``reference`` maps step
-    (as a string) to the loss of an uninterrupted run of the same
-    configuration; without it the example runs once alone first."""
+    under the job's own agent. With ``warm_spare`` (run A) the command runs
+    as a user types it and the recovery must adopt the warm spare; without
+    (run B) the same launcher runs with ``ElasticLaunchConfig(warm_spare=
+    False)`` and the recovery must be a cold start. Raises on the first
+    failed check; returns the phase's facts and the ``tpurun`` timings.
+    ``reference`` maps step (as a string) to the loss of an uninterrupted
+    run of the same configuration; without it the example runs once alone
+    first. ``job_log``, when given, is a file that receives every line of
+    the job's output."""
     import signal
 
+    from dlrover_tpu_torch.agent.training_agent import ElasticTrainingAgent
     from dlrover_tpu_torch.agent.worker import read_pidfile
     from dlrover_tpu_torch.checkpoint.shm_handler import SharedMemoryHandler
 
@@ -977,7 +1140,11 @@ def tpurun_phase(work, job, device="cuda", small=False, total_steps=TPURUN_STEPS
     for name in ("DLROVER_MASTER_ADDR", "DLROVER_IPC_NAMESPACE", "DLROVER_NODE_ID",
                  "DLROVER_NODE_RANK"):
         env.pop(name, None)
-    cmd = [sys.executable] + FLAGSHIP + (["--device", "cpu", "--small"] if small else [])
+    extra = ["--device", "cpu", "--small"] if small else []
+    if warm_spare:
+        cmd = [sys.executable] + FLAGSHIP + extra
+    else:
+        cmd = [sys.executable, os.path.abspath(__file__), "--tpurun-no-spare"] + FLAGSHIP[2:] + extra
     saved_ns = os.environ.get("DLROVER_IPC_NAMESPACE")
     os.environ["DLROVER_IPC_NAMESPACE"] = job  # names this process's view of the job's shm
     try:
@@ -992,9 +1159,11 @@ def tpurun_phase(work, job, device="cuda", small=False, total_steps=TPURUN_STEPS
                             env=env, start_new_session=True,
                             cwd=os.path.dirname(os.path.abspath(__file__)))
     out = _JobOutput(proc)
+    watch = _Watch(proc.pid)
     deadline = time.monotonic() + timeout
     pids = {"agent": proc.pid}
     owners = []
+    at_kill = {}
 
     def wait_for(what, cond, poll=0.01):
         while True:
@@ -1022,26 +1191,27 @@ def tpurun_phase(work, job, device="cuda", small=False, total_steps=TPURUN_STEPS
         owners.append(_gpu_owners(device, proc.pid, pids["master"], boot0["pid"]))
 
         def staged_and_computing_next():
-            # Stages are sparse (none while a persist holds the shard lock)
-            # and a stage (0.2 s) outlasts a step (0.08-0.12 s): when one
-            # lands, the next step may have finished unstaged. Kill when the
-            # staged step is at most one behind the last finished one, so
-            # that only that step, in flight to shm, is redone.
+            # A stage (0.2 s on the card) outlasts a step (about 0.1 s), so
+            # about every other step is staged: kill when the staged step is
+            # at most one behind the last finished one, so that only that
+            # step, in flight to shm, is redone.
             steps = out.events("step", boot0["pid"])
             last = steps[-1]["step"] if steps else -1
-            if last < TPURUN_KILL_AFTER:
+            if last < TPURUN_KILL_AFTER or (warm_spare and not watch.ready_spares()):
                 return None
             meta = shm.read_meta()
             if meta is not None and meta.step >= max(TPURUN_KILL_AFTER, last - 1):
-                return meta
+                return meta, last
             return None
 
-        meta = wait_for(f"a staged step >= {TPURUN_KILL_AFTER}", staged_and_computing_next)
+        meta, last = wait_for(f"a staged step >= {TPURUN_KILL_AFTER}", staged_and_computing_next)
         worker_pid = read_pidfile(job)[0]
         check(worker_pid == boot0["pid"], f"pidfile names {worker_pid}, not {boot0['pid']}")
+        at_kill = {"staged": meta.step, "trained": last, "spares": watch.ready_spares()}
         t_kill = time.time()
         os.kill(worker_pid, signal.SIGKILL)
-        log(f"  SIGKILLed worker pid {worker_pid} with step {meta.step} staged")
+        log(f"  SIGKILLed worker pid {worker_pid} with step {meta.step} staged, step {last} "
+            f"trained; ready spares {[r['pid'] for r in at_kill['spares']]}")
         boot1 = wait_for("the restarted worker's boot", lambda: (
             out.events("boot")[1:] or None))[0]
         pids["worker1"] = boot1["pid"]
@@ -1050,21 +1220,32 @@ def tpurun_phase(work, job, device="cuda", small=False, total_steps=TPURUN_STEPS
         owners.append(_gpu_owners(device, proc.pid, pids["master"], boot1["pid"]))
         rc = proc.wait(max(1.0, deadline - time.monotonic()))
     finally:
+        t_end = time.time()
         if proc.poll() is None:
             os.killpg(proc.pid, signal.SIGKILL)
             proc.wait(30)
+        watch.stop()
+        spare_pids = list(watch.spares)
         for name in ("worker0", "worker1", "master"):
             if name in pids and _proc_alive(pids[name]):
                 os.killpg(os.getpgid(pids[name]), signal.SIGKILL)
         out.join()
         shm.close()
-    t_end = time.time()
-    leaked = [p for p in pids.values() if _proc_alive(p)] + _group_members(
-        {pids[n] for n in ("worker0", "worker1") if n in pids})
+    time.sleep(0.5)  # the agent's last kills are reaped by now
+    leaked = [p for p in list(pids.values()) + spare_pids if _proc_alive(p)] + _group_members(
+        {pids[n] for n in ("worker0", "worker1") if n in pids} | set(spare_pids))
+    for p in leaked:
+        try:
+            os.kill(p, signal.SIGKILL)
+        except OSError:
+            pass
     segments = [n for n in os.listdir("/dev/shm") if n.startswith(f"dlrover_{job}_")]
     for name in segments:
         os.unlink(os.path.join("/dev/shm", name))
     log("  job output (last lines):\n    " + "\n    ".join(out.lines[-12:]))
+    if job_log:
+        with open(job_log, "w") as f:
+            f.write("\n".join(out.lines) + "\n")
 
     check(rc == 0, f"tpurun exited {rc}")
     check(out.grep(r"job master exiting: succeeded"), "the master did not exit with SUCCEEDED")
@@ -1079,7 +1260,9 @@ def tpurun_phase(work, job, device="cuda", small=False, total_steps=TPURUN_STEPS
     check([b["restart_count"] for b in boots] == [0, 1],
           f"RESTART_COUNT seen {[b['restart_count'] for b in boots]}")
     staged = rec.get("persisted_step", -1)
-    check(staged >= TPURUN_KILL_AFTER, f"breakpoint save persisted step {staged}")
+    check(TPURUN_KILL_AFTER <= staged <= TPURUN_KILL_BY,
+          f"breakpoint save persisted step {staged}: a stage at or after step "
+          f"{TPURUN_KILL_AFTER} should land by step {TPURUN_KILL_BY}")
     check(boot1["tracker"] == staged,
           f"storage held step {boot1['tracker']} at the restart, not the staged {staged}")
     (resume,) = out.events("resume", boot1["pid"])
@@ -1115,12 +1298,45 @@ def tpurun_phase(work, job, device="cuda", small=False, total_steps=TPURUN_STEPS
     check(not leaked, f"processes of the job still alive: {leaked}")
     check(not segments, f"shm segments of the job left behind: {segments}")
 
+    # the warm spare: adopted in run A, absent in run B
+    how = rec.get("how")
+    spawns = [(int(m.group(1)), float(m.group(2)))
+              for m in out.grep(r"spawned warm spare pid=(\d+) at ([\d.]+)")]
+    spares = {pid: dict(r) for pid, r in watch.spares.items()}
+    for r in spares.values():
+        r["ready_s"] = r["ready"] - r["seen"] if r["ready"] else None
+    later = [(p, t) for p, t in spawns if t > rec["respawned"]]
+    job_end = max(r["t"] for r in steps1.values())
+    if warm_spare:
+        check(how == "warm", f"the recovery was {how}, not warm")
+        check(at_kill["spares"], "no ready warm spare before the kill")
+        check(boot1["adopted"] and boot1["pid"] in [r["pid"] for r in at_kill["spares"]],
+              f"the restarted worker {boot1['pid']} is not the spare of the kill "
+              f"{[r['pid'] for r in at_kill['spares']]}")
+        check(spares.get(boot1["pid"], {}).get("samples", 0) > 0,
+              "the adopted spare was never sampled before its promotion")
+        held = {p: r["nvidia_fds"] for p, r in spares.items() if r["nvidia_fds"]}
+        check(not held, f"a spare held /dev/nvidia* before its promotion: {held}")
+        # the next spare, SPARE_SPAWN_DELAY_S after the worker start; the agent
+        # spawns none once the job has ended
+        delay = ElasticTrainingAgent.SPARE_SPAWN_DELAY_S
+        if job_end - rec["respawned"] > delay + 1.0:
+            check(later and abs(later[0][1] - rec["respawned"] - delay) < 2.0,
+                  f"no spare spawned {delay} s after the worker start {rec['respawned']}: "
+                  f"{spawns}")
+    else:
+        check(how == "cold", f"the recovery was {how}, not cold")
+        check(not spawns and not spares, f"warm spares with warm_spare=False: {spawns}")
+        check(not boot1["adopted"], "the restarted worker was an adopted spare")
+
     up = out.grep(r"standalone master at \S+ up in ([\d.]+) s")
     rdzv = out.grep(r"world ready: round=0 .*\(rendezvous ([\d.]+) s\)")
-    spawn0 = out.grep(rf"started worker pid={boot0['pid']} restart=0 .* at ([\d.]+)")
+    spawn0 = out.grep(rf"started worker pid={boot0['pid']} restart=0 \((\w+)\) .* at ([\d.]+)")
     first0 = steps0[0]
     first1 = steps1[staged + 1]
     (resume0,) = out.events("resume", boot0["pid"])
+    first_split = {r["pid"]: {k: v for k, v in r.items() if k.endswith("_s") or k == "staged"}
+                   for r in out.events("first_step")}
 
     def boot_split(b):
         return {"import_s": b["t_imported"] - b["t_start"], "cuda_init_s": b["t_cuda"] - b["t_imported"],
@@ -1129,6 +1345,7 @@ def tpurun_phase(work, job, device="cuda", small=False, total_steps=TPURUN_STEPS
 
     restore_end = resume["t_loop"] + resume["restore_s"]
     recovery = {
+        "how": how,
         "detect_s": rec["detected"] - t_kill,
         "breakpoint_persist_s": rec["persisted"] - rec["detected"],
         "respawn_s": resume["t_loop"] - rec["persisted"],
@@ -1137,32 +1354,93 @@ def tpurun_phase(work, job, device="cuda", small=False, total_steps=TPURUN_STEPS
         "total_s": first1["t"] - t_kill,
         "respawn_split": {"agent_s": rec["respawned"] - rec["persisted"],
                           "rendezvous_s": rec["rdzv_s"],
-                          "interpreter_s": boot1["t_start"] - rec["respawned"],
+                          # warm: the hand-off (contract line to the script);
+                          # cold: a fresh interpreter up to the script
+                          "start_s": boot1["t_start"] - rec["respawned"],
                           **boot_split(boot1)},
+        "first_step_split": first_split.get(boot1["pid"]),
     }
+    if boot1["adopted"]:
+        recovery["spare"] = {k: boot1[k] for k in ("spare_import_s", "spare_age_s",
+                                                    "contract_to_script_s")}
+
+    # the persists: the shard lock's hold (the copy out of shm) and the write
+    persists = [{"step": int(m.group(1)), "hold_s": float(m.group(2)), "write_s": float(m.group(3))}
+                for m in out.grep(r"persisted step (\d+): shard lock held ([\d.]+) s "
+                                  r"\(snapshot\), write ([\d.]+) s")]
+    last0, last1 = steps0[max(steps0)], steps1[max(steps1)]
+    skipped = {name: r.get("skipped") for name, r in (("worker0", last0), ("worker1", last1))}
+
+    # the loop's step while a spare imports (spawned, not ready yet), against
+    # the other steps of the same worker; the first step of each worker is
+    # left out
+    windows = [(r["seen"], r["ready"]) for r in spares.values() if r["ready"]]
+    step_split = {}
+    for name, steps in (("worker0", steps0), ("worker1", steps1)):
+        during, other = [], []
+        ordered = [steps[s] for s in sorted(steps)]
+        for prev, cur in zip(ordered, ordered[1:]):
+            dt = cur["t"] - prev["t"]
+            hit = any(prev["t"] < b and cur["t"] > a for a, b in windows)
+            (during if hit else other).append(dt)
+        step_split[name] = {"while_spare_imports": {"median": _median(during), "n": len(during)},
+                            "other": {"median": _median(other), "n": len(other)}}
+    def gb(mem):
+        return {key: kb / 2**20 for key, kb in mem.items()}
+
+    def peak(samples):
+        out = {}
+        for mem in samples:
+            for key, kb in mem.items():
+                out[key] = max(out.get(key, 0), kb)
+        return out
+
+    # the agent before the first persist (its first step's end: step 0 is a
+    # storage step) and at its peak: the persist buffers are the difference
+    agent_before = peak([m for t, m in watch.agent_mem if t < first0["t"]])
+    agent_peak = peak([m for _, m in watch.agent_mem])
     timings = {
-        "card": card, "model": "gpt2-small" if not small else "small",
+        "card": card, "model": "gpt2-small" if not small else "small", "warm_spare": warm_spare,
         "n_params": boot0["n_params"], "steps": total_steps, "killed_with_staged_step": staged,
+        "kill": {"staged": at_kill["staged"], "trained": at_kill["trained"],
+                 "lag_steps": at_kill["trained"] - at_kill["staged"]},
         "monitor_interval_s": 5.0,
         "cold_start": {
+            "how": spawn0[0].group(1) if spawn0 else None,
             "master_start_s": float(up[0].group(1)) if up else None,
             "first_rendezvous_s": float(rdzv[0].group(1)) if rdzv else None,
-            "interpreter_s": boot0["t_start"] - float(spawn0[0].group(1)) if spawn0 else None,
+            "start_s": boot0["t_start"] - float(spawn0[0].group(2)) if spawn0 else None,
             **boot_split(boot0),
             "first_step_s": first0["t"] - (resume0["t_loop"] + resume0["restore_s"]),
+            "first_step_split": first_split.get(boot0["pid"]),
             "launch_to_first_step_s": first0["t"] - t_launch,
         },
         "recovery": recovery,
+        "persists": persists,
+        "skipped_stages": skipped,
+        "storage_wait_s": {"worker0": last0.get("storage_wait_s"),
+                           "worker1": last1.get("storage_wait_s")},
+        "agent_mem_gb_before_first_persist": gb(agent_before),
+        "agent_mem_gb_peak": gb(agent_peak),
+        "spares": [{"pid": r["pid"], "ready_s": r["ready_s"], "mem_gb": gb(r["mem_kb"]),
+                    "nvidia_fds": r["nvidia_fds"], "samples": r["samples"]}
+                   for r in spares.values()],
+        "spare_spawns_after_recovery_s": [t - rec["respawned"] for _, t in later],
+        "step_s": step_split,
         "job_s": t_end - t_launch,
     }
-    facts = {"restored_step": staged, "restored_from": resume["restored_from"],
+    facts = {"restored_step": staged, "restored_from": resume["restored_from"], "how": how,
              "redone_steps": redone, "max_loss_diff": max_diff, "gpu_owners": owners,
-             "pids": pids}
+             "pids": pids, "spares": sorted(spares)}
     return facts, timings
 
 
 def main(argv=()) -> int:
     import argparse
+
+    argv = list(argv)
+    if argv[:1] == ["--tpurun-no-spare"]:
+        return _no_spare_entry(argv[1:])
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trainer", choices=("reference", "kill", "resume", "restore", "bench"),
@@ -1170,13 +1448,14 @@ def main(argv=()) -> int:
     parser.add_argument("--ckpt", help="checkpoint directory of the trainer")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--small", action="store_true", help="2-layer model (tests)")
-    args = parser.parse_args(list(argv))
+    parser.add_argument("--job-log-dir", help="write each tpurun run's whole output here")
+    args = parser.parse_args(argv)
     if args.trainer:
         return trainer(args)
-    return smoke()
+    return smoke(args.job_log_dir)
 
 
-def smoke() -> int:
+def smoke(job_log_dir=None) -> int:
     import torch
 
     from dlrover_tpu_torch.common.platform import strict_fp32
@@ -1223,15 +1502,22 @@ def smoke() -> int:
     log("checkpoint and elastic loop: " + json.dumps(facts))
     numbers["main_path_step_s"] = result["step_s"]
 
-    log("tpurun: the flagship command, a worker SIGKILL and its recovery under its own agent")
-    work = tempfile.mkdtemp(prefix="chip_smoke_tpurun_")
-    try:
-        tpurun_facts, tpurun_times = tpurun_phase(
-            work, f"chip_smoke_tpurun_{os.getpid()}_{int(time.time())}",
-            reference=facts["reference_losses"], card=card)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    log("tpurun: " + json.dumps(tpurun_facts))
+    tpurun_times = {}
+    for run, warm in (("A", True), ("B", False)):
+        log(f"tpurun run {run}: the flagship command with the warm spare "
+            f"{'on (as typed)' if warm else 'off (ElasticLaunchConfig(warm_spare=False))'}, "
+            f"a worker SIGKILL and its recovery under its own agent")
+        work = tempfile.mkdtemp(prefix="chip_smoke_tpurun_")
+        try:
+            tpurun_facts, tpurun_times[run] = tpurun_phase(
+                work, f"chip_smoke_tpurun_{run}_{os.getpid()}_{int(time.time())}",
+                reference=facts["reference_losses"], card=card, warm_spare=warm,
+                job_log=job_log_dir and os.path.join(job_log_dir, f"tpurun_{run}.log"))
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        log(f"tpurun run {run}: " + json.dumps(tpurun_facts))
+    recoveries = {run: t["recovery"] for run, t in tpurun_times.items()}
+    log("tpurun: recovery, warm (A) against cold (B): " + json.dumps(recoveries))
 
     shape = {k: MAIN_SHAPE[k] for k in ("B", "T", "H", "D", "causal")}
     kernels = []

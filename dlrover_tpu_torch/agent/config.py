@@ -2,12 +2,14 @@
 ``dlrover_tpu/agent/config.py``.
 
 The same fields and defaults, with these differences: the accelerator is a
-GPU (or the CPU, for tests), the transport defaults to HTTP, and warm
-spares and soft re-mesh default to off. Fields
-of features the port does not have yet (warm spares, soft re-mesh,
-profiling, NUMA pinning, the compile cache, the network check, tuning)
-keep their JAX defaults so a config reads the same; the agent and the
-launcher raise ``not_ported`` when one of them is switched on.
+GPU (or the CPU, for tests), the transport defaults to HTTP, and soft
+re-mesh defaults to off. Warm spares are on by default, as in the JAX
+package; ``ElasticLaunchConfig(warm_spare=False)`` turns them off (the
+JAX launcher has no flag for it, and neither has this one). Fields of
+features the port does not have yet (soft re-mesh, profiling, NUMA
+pinning, the compile cache, the network check, tuning) keep their JAX
+defaults so a config reads the same; the agent and the launcher raise
+``not_ported`` when one of them is switched on.
 """
 
 import os
@@ -56,8 +58,9 @@ class ElasticLaunchConfig:
     profiler_port: int = 0
     profiler_daemon_port: int = 0
     profiler_scrape_interval_s: float = 30.0
+    # a pre-imported interpreter on deck for the next worker start
+    warm_spare: bool = True
     # not ported: off here (on in the JAX package), raising when switched on
-    warm_spare: bool = False
     soft_remesh: bool = False
     soft_remesh_timeout_s: float = 15.0
     compile_cache_dir: str = ""

@@ -17,10 +17,21 @@ env contract, then supervises it:
   barrier, persists the last staged step and releases the job's shared
   memory.
 
+The agent keeps one warm spare (``warm_spare``, on by default as in the
+JAX package): a pre-imported interpreter spawned when the agent starts and
+again ``SPARE_SPAWN_DELAY_S`` after each worker start that left the agent
+without one, which the next worker start adopts. It is killed on every way out of
+:meth:`run`. One thing differs from the JAX agent: a restart waits up to
+2 s for a spare that is not ready yet, but the first start takes the
+initial spare only if it is ready by then. With a rendezvous that forms at
+once (one node) the JAX agent's 2 s wait holds the first worker back, is
+too short for the imports, and when it is long enough it leaves the job
+without a spare for ``SPARE_SPAWN_DELAY_S`` plus the imports.
+
 The agent holds no CUDA context: it never touches ``torch.cuda``; the
-worker owns the GPU. Soft re-mesh, warm spares, profiling and stack dumps,
-the metrics server, the resource monitor, master re-attach, events and
-chaos hooks wait for later slices and raise when they are configured.
+worker owns the GPU. Soft re-mesh, profiling and stack dumps, the metrics
+server, the resource monitor, master re-attach, events and chaos hooks wait
+for later slices and raise when they are configured.
 """
 
 import json
@@ -41,7 +52,8 @@ from ..rpc.client import MasterClient
 from .config import ElasticLaunchConfig
 from .diagnosis_agent import DiagnosisAgent, WorkerFailure
 from .rendezvous import MasterRendezvousHandler, RendezvousWorld
-from .worker import RunResult, WorkerProcess, WorkerSpec, WorkerState, reap_stale_workers
+from .worker import (RunResult, WarmSpare, WorkerProcess, WorkerSpec, WorkerState,
+                     reap_stale_workers)
 
 AGENT_EXIT_OK = 0
 # nonzero asks the platform (the master) to replace this node
@@ -55,7 +67,6 @@ RECOVERY_LOG_PREFIX = "agent recovery: "
 
 def _not_ported_features(config: ElasticLaunchConfig):
     return (
-        (config.warm_spare, "warm spares"),
         (config.soft_remesh, "soft re-mesh"),
         (config.profile_enabled(), "native profiling (--profile on)"),
         (config.numa_affinity, "NUMA affinity (--numa-affinity)"),
@@ -105,6 +116,10 @@ class ElasticTrainingAgent:
         # wall-clock stamps of the last recovery (see RECOVERY_LOG_PREFIX)
         self.last_recovery: Dict[str, float] = {}
         self._last_rdzv_s = 0.0
+        self._last_start = "cold"  # how the current worker started
+        self._spare: Optional[WarmSpare] = None
+        # guards _spare against the deferred spawn's thread
+        self._spare_lock = threading.Lock()
 
     # -- lifecycle --------------------------------------------------------
 
@@ -116,12 +131,17 @@ class ElasticTrainingAgent:
         self._diagnosis.start_heartbeat()
         code = AGENT_EXIT_FATAL
         try:
+            # the first spare at once: its imports race the rendezvous, so
+            # even the first worker start may adopt it
+            self._replenish_spare(delay_s=0.0)
             self._initialize_workers()
             code = self._invoke_run()
             return code
         finally:
+            # set before the spare is killed: a deferred spawn checks it
             self._stopped.set()
             self._diagnosis.stop()
+            self._kill_spare()
             if self._worker is not None:
                 self._worker.stop()
             if self._start_ckpt_saver:
@@ -159,8 +179,19 @@ class ElasticTrainingAgent:
         logger.info("world ready: round=%s rank=%s/%s coordinator=%s (rendezvous %.3f s)",
                     self._world.round, self._world.rank, self._world.world_size,
                     self._world.coordinator, self._last_rdzv_s)
+        first = self._worker is None
         self._worker = WorkerProcess(self._spec, restart_count=self._restart_count)
-        self._worker.start(dynamic_env=self._world_env(self._world))
+        spare = self._take_spare()
+        self._last_start = self._worker.start(dynamic_env=self._world_env(self._world),
+                                              spare=spare, spare_wait_s=0.0 if first else 2.0)
+        if self._last_start != "warm" and spare is not None:
+            if spare.proc.poll() is None:
+                with self._spare_lock:  # not ready yet: keep it for the next start
+                    if self._spare is None and not self._stopped.is_set():
+                        self._spare, spare = spare, None
+            if spare is not None:
+                spare.kill()
+        self._replenish_spare()
         self._report_status(NodeStatus.RUNNING)
 
     def _world_env(self, world: RendezvousWorld) -> Dict[str, str]:
@@ -225,7 +256,7 @@ class ElasticTrainingAgent:
             self._remaining_restarts -= 1
             self._restart_workers("worker failure")
             rec.update(respawned=self._worker.start_time, new_pid=self._worker.pid,
-                       rdzv_s=self._last_rdzv_s)
+                       rdzv_s=self._last_rdzv_s, how=self._last_start)
             self.last_recovery = rec
             logger.info("%s%s", RECOVERY_LOG_PREFIX, json.dumps(rec))
             return None
@@ -272,6 +303,50 @@ class ElasticTrainingAgent:
             self._report_status(NodeStatus.FAILED, exit_reason="job_aborted")
             return AGENT_EXIT_FATAL
         return None
+
+    # -- the warm spare (one pre-imported interpreter per agent) ----------
+
+    # The spawn after a worker start is deferred off the recovery's critical
+    # path: the spare's imports would compete with the new worker's boot for
+    # the host's CPU at the moment the time to recover is measured.
+    SPARE_SPAWN_DELAY_S = 8.0
+
+    def _take_spare(self) -> Optional[WarmSpare]:
+        with self._spare_lock:
+            spare, self._spare = self._spare, None
+            return spare
+
+    def _kill_spare(self) -> None:
+        spare = self._take_spare()
+        if spare is not None:
+            spare.kill()
+
+    def _replenish_spare(self, delay_s: Optional[float] = None) -> None:
+        """Keep one warm spare on deck: spawned after ``delay_s`` (by default
+        ``SPARE_SPAWN_DELAY_S``), at once when the agent starts."""
+        with self._spare_lock:
+            if not self._config.warm_spare or self._spare is not None:
+                return
+
+        def spawn():
+            with self._spare_lock:
+                # under the lock: a stop that set the flag first kills no
+                # spare spawned after its cleanup
+                if self._spare is not None or self._stopped.is_set():
+                    return
+                try:
+                    self._spare = WarmSpare(self._spec)
+                except Exception as e:  # noqa: BLE001 — an optimization only
+                    logger.warning("warm spare spawn failed: %s", e)
+
+        if delay_s is None:
+            delay_s = self.SPARE_SPAWN_DELAY_S
+        if delay_s <= 0:
+            spawn()
+            return
+        timer = threading.Timer(delay_s, spawn)
+        timer.daemon = True
+        timer.start()
 
     # -- helpers ----------------------------------------------------------
 

@@ -12,13 +12,22 @@ One host runs one worker process. Kept from the JAX module:
 - a pidfile of (pid, kernel start time) per IPC namespace, and
   ``reap_stale_workers``, which kills a dead agent's orphaned worker
   before a new one is started (a leaked worker holds the GPU);
-- the tail of the worker's log for the failure diagnosis.
+- the tail of the worker's log for the failure diagnosis;
+- :class:`WarmSpare`, a pre-imported interpreter (``warm_worker``) that
+  :meth:`WorkerProcess.start` adopts as the worker when it is ready, with a
+  cold start when it is not or when it dies during the hand-off.
 
-Warm spares (pre-imported interpreters) and NUMA pinning wait for later
-slices; :class:`..training_agent.ElasticTrainingAgent` raises when they are
-asked for.
+Three things differ from the JAX module. The spare has a pidfile of its
+own beside the worker's, so that ``reap_stale_workers`` also kills a dead
+agent's spare; an adopted spare's log takes the name a cold worker's log
+would have (``worker_<restart>.log``); and without a log directory the
+spare writes to the agent's stdout and stderr, as a cold worker does.
+
+NUMA pinning waits for a later slice; :class:`..training_agent.
+ElasticTrainingAgent` raises when it is asked for.
 """
 
+import json
 import os
 import signal
 import subprocess
@@ -76,13 +85,41 @@ def _proc_starttime(pid: int) -> Optional[int]:
     return info[1] if info else None
 
 
-def read_pidfile(namespace: Optional[str] = None):
-    """(pid, start ticks) recorded for the namespace's worker, or None."""
+def spare_pidfile(namespace: Optional[str] = None) -> str:
+    """The pidfile of this IPC namespace's warm spare."""
+    os.makedirs(pidfile_dir(), exist_ok=True)
+    return os.path.join(pidfile_dir(), f"{namespace or _ipc_namespace()}.spare.pid")
+
+
+def _read_pid(path: str):
     try:
-        parts = open(worker_pidfile(namespace)).read().split()
+        parts = open(path).read().split()
         return int(parts[0]), int(parts[1]) if len(parts) > 1 else 0
     except (OSError, ValueError, IndexError):
         return None
+
+
+def _write_pid(path: str, pid: int) -> None:
+    try:
+        with open(path, "w") as f:
+            f.write(f"{pid} {_proc_starttime(pid) or 0}")
+    except OSError:
+        logger.warning("could not write the pidfile %s", path)
+
+
+def _unlink_pid(path: str, pid: int) -> None:
+    """Remove ``path`` if it still names ``pid``."""
+    recorded = _read_pid(path)
+    if recorded is not None and recorded[0] == pid:
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+
+
+def read_pidfile(namespace: Optional[str] = None):
+    """(pid, start ticks) recorded for the namespace's worker, or None."""
+    return _read_pid(worker_pidfile(namespace))
 
 
 def _kill_group(pid: int, sig: int) -> None:
@@ -118,14 +155,21 @@ class OrphanWorkerError(RuntimeError):
 
 
 def reap_stale_workers() -> None:
-    """Kill a previous agent incarnation's worker before starting ours.
+    """Kill a previous agent incarnation's worker and warm spare before
+    starting ours.
 
     An agent that died hard (SIGKILL, OOM) leaves its worker running in
-    its own session, holding the GPU and the staged shm. Its identity is
-    (pid, start time) from the pidfile, so a reused pid is never killed.
-    Raises :class:`OrphanWorkerError`, keeping the pidfile, if the orphan
-    survives SIGKILL."""
-    recorded = read_pidfile()
+    its own session, holding the GPU and the staged shm, and its spare
+    waiting on a pipe nobody writes to. Their identity is (pid, start time)
+    from the pidfiles, so a reused pid is never killed. Raises
+    :class:`OrphanWorkerError`, keeping the pidfile, if an orphan survives
+    SIGKILL."""
+    for path in (spare_pidfile(), worker_pidfile()):
+        _reap_recorded(path)
+
+
+def _reap_recorded(path: str) -> None:
+    recorded = _read_pid(path)
     if recorded is None:
         return
     pid, recorded_start = recorded
@@ -137,7 +181,8 @@ def reap_stale_workers() -> None:
         return not recorded_start or info[1] == recorded_start
 
     if alive():
-        logger.warning("reaping orphan worker pid=%s of a dead agent", pid)
+        logger.warning("reaping orphan process pid=%s of a dead agent (%s)", pid,
+                       os.path.basename(path))
         _kill_group(pid, signal.SIGKILL)
         deadline = time.time() + 30
         while time.time() < deadline and alive():
@@ -146,7 +191,7 @@ def reap_stale_workers() -> None:
             raise OrphanWorkerError(f"orphan worker pid={pid} survived SIGKILL; refusing to "
                                     "start a second worker on the same GPU and shm")
     try:
-        os.unlink(worker_pidfile())
+        os.unlink(path)
     except OSError:
         pass
 
@@ -170,6 +215,101 @@ class RunResult:
     signal: Optional[int] = None
 
 
+class WarmSpare:
+    """A pre-imported interpreter waiting to become the next worker
+    (:mod:`.warm_worker`), in a session of its own like the worker.
+
+    The spare pays the interpreter start and the imports ahead of need,
+    while the current worker trains, and turns into the worker when
+    :meth:`hand_off` writes the env contract to its stdin. It holds no
+    CUDA context until then. When the agent dies, the spare reads EOF on
+    its stdin and exits.
+    """
+
+    def __init__(self, spec: "WorkerSpec", tag: str = "spare"):
+        self.spec = spec
+        self._ready_file = os.path.join(tempfile.gettempdir(),
+                                        f"dlrover_warm_{os.getpid()}_{tag}_{time.time_ns()}")
+        env = dict(os.environ)
+        env.update(spec.env)
+        env["DLROVER_WARM_READY_FILE"] = self._ready_file
+        self.log_path: Optional[str] = None
+        self._log_file = None
+        if spec.log_dir:
+            os.makedirs(spec.log_dir, exist_ok=True)
+            self.log_path = os.path.join(spec.log_dir, f"worker_{tag}_{time.time_ns()}.log")
+            self._log_file = open(self.log_path, "wb")
+        self.spawned = time.time()
+        # Without a log directory the spare writes where a cold worker would:
+        # to the agent's own stdout and stderr (the JAX spare's go nowhere,
+        # and so would the adopted worker's output). It prints nothing there
+        # before the hand-off.
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "dlrover_tpu_torch.agent.warm_worker"], env=env,
+            stdin=subprocess.PIPE, stdout=self._log_file,
+            stderr=subprocess.STDOUT if self._log_file else None, start_new_session=True)
+        _write_pid(spare_pidfile(), self.proc.pid)
+        logger.info("spawned warm spare pid=%s at %.6f", self.proc.pid, self.spawned)
+
+    def ready(self) -> bool:
+        return os.path.exists(self._ready_file) and self.proc.poll() is None
+
+    def wait_ready(self, timeout: float = 0.0) -> bool:
+        deadline = time.time() + timeout
+        while not self.ready():
+            if self.proc.poll() is not None or time.time() >= deadline:
+                return self.ready()
+            time.sleep(0.05)
+        return True
+
+    def hand_off(self, dynamic_env: Dict[str, str]) -> None:
+        """Turn the spare into the worker (irreversible). Raises OSError if
+        the spare died: the pipe is closed or broken. The write is one line
+        of a few kilobytes, within the pipe's buffer, so it does not wait on
+        the spare."""
+        contract = {"env": dynamic_env, "entrypoint": self.spec.entrypoint,
+                    "args": list(self.spec.args), "run_module": self.spec.run_module}
+        self.proc.stdin.write((json.dumps(contract) + "\n").encode())
+        self.proc.stdin.flush()
+        self.proc.stdin.close()
+        self._cleanup_marker()
+        _unlink_pid(spare_pidfile(), self.proc.pid)
+
+    def kill(self) -> None:
+        """SIGKILL the spare's group and reap it, so that no zombie is left;
+        bounded."""
+        if self.proc.poll() is None:
+            _kill_group(self.proc.pid, signal.SIGKILL)
+        try:
+            # killpg alone leaves a zombie holding its slot in the pid table
+            self.proc.wait(timeout=5.0)
+        except subprocess.TimeoutExpired:
+            logger.warning("warm spare pid=%s survived SIGKILL for 5 s", self.proc.pid)
+        if self.proc.stdin is not None and not self.proc.stdin.closed:
+            try:
+                self.proc.stdin.close()
+            except OSError:
+                pass
+        if self._log_file is not None:
+            try:
+                self._log_file.close()
+            finally:
+                self._log_file = None
+        self._cleanup_marker()
+        _unlink_pid(spare_pidfile(), self.proc.pid)
+
+    def detach_log(self):
+        """(path, file) handed to the adopting WorkerProcess."""
+        log_file, self._log_file = self._log_file, None
+        return self.log_path, log_file
+
+    def _cleanup_marker(self) -> None:
+        try:
+            os.unlink(self._ready_file)
+        except OSError:
+            pass
+
+
 class WorkerProcess:
     """One supervised training process."""
 
@@ -185,13 +325,40 @@ class WorkerProcess:
     def pid(self) -> Optional[int]:
         return self._proc.pid if self._proc else None
 
-    def start(self, dynamic_env: Optional[Dict[str, str]] = None) -> str:
-        """Start the worker (always a cold start: warm spares are not
-        ported); returns "cold"."""
+    def start(self, dynamic_env: Optional[Dict[str, str]] = None,
+              spare: Optional[WarmSpare] = None, spare_wait_s: float = 2.0) -> str:
+        """Start the worker, or adopt the warm ``spare`` as the worker when it
+        is ready within ``spare_wait_s``; returns "warm" or "cold". A spare
+        that dies during the hand-off leads to a cold start. The pidfile
+        and the "started worker" line come before the worker runs its
+        script."""
+        contract_env = dict(dynamic_env or {})
+        contract_env[NodeEnv.RESTART_COUNT] = str(self.restart_count)
+        if spare is not None and not spare.wait_ready(timeout=spare_wait_s):
+            logger.warning("warm spare pid=%s not ready; cold-starting", spare.proc.pid)
+        elif spare is not None:
+            self._log_path, self._log_file = spare.detach_log()
+            if self._log_path:
+                # the log of the worker of this restart, whichever way it started
+                path = os.path.join(self.spec.log_dir, f"worker_{self.restart_count}.log")
+                try:
+                    os.replace(self._log_path, path)
+                    self._log_path = path
+                except OSError:
+                    logger.warning("could not rename the adopted spare's log %s", self._log_path)
+            self._proc = spare.proc
+            self._announce("warm")
+            try:
+                spare.hand_off(contract_env)
+                return "warm"
+            except OSError as e:
+                logger.warning("warm spare died during the hand-off (%s); cold-starting", e)
+                spare.kill()
+                self._close_log()
+                self._log_path = self._proc = None
         env = dict(os.environ)
         env.update(self.spec.env)
-        env.update(dynamic_env or {})
-        env[NodeEnv.RESTART_COUNT] = str(self.restart_count)
+        env.update(contract_env)
         if self.spec.run_module:
             cmd = [sys.executable, "-m", self.spec.entrypoint]
         else:
@@ -207,16 +374,16 @@ class WorkerProcess:
         self._proc = subprocess.Popen(cmd, env=env, stdout=stdout,
                                       stderr=subprocess.STDOUT if stdout else None,
                                       start_new_session=True)
-        self.start_time = time.time()
-        try:
-            start_ticks = _proc_starttime(self._proc.pid)
-            with open(worker_pidfile(), "w") as f:
-                f.write(f"{self._proc.pid} {start_ticks or 0}")
-        except OSError:
-            logger.warning("could not write the worker pidfile")
-        logger.info("started worker pid=%s restart=%s (cold) entry=%s at %.6f", self._proc.pid,
-                    self.restart_count, self.spec.entrypoint, self.start_time)
+        self._announce("cold")
         return "cold"
+
+    def _announce(self, how: str) -> None:
+        """Record the worker: the pidfile (an adopted spare is named with its
+        own pid and start ticks) and the "started worker" line."""
+        self.start_time = time.time()
+        _write_pid(worker_pidfile(), self._proc.pid)
+        logger.info("started worker pid=%s restart=%s (%s) entry=%s at %.6f", self._proc.pid,
+                    self.restart_count, how, self.spec.entrypoint, self.start_time)
 
     def poll(self) -> RunResult:
         if self._proc is None:
@@ -247,12 +414,7 @@ class WorkerProcess:
             except (ProcessLookupError, PermissionError):
                 pass
         self._close_log()
-        recorded = read_pidfile()
-        if recorded is not None and recorded[0] == self._proc.pid:
-            try:
-                os.unlink(worker_pidfile())
-            except OSError:
-                pass
+        _unlink_pid(worker_pidfile(), self._proc.pid)
 
     def wait(self, timeout: Optional[float] = None) -> RunResult:
         if self._proc is not None:

@@ -164,6 +164,11 @@ class CheckpointEngine:
         # rung of the last restore: "prefetch", "memory", "storage" or None
         self.restored_from: Optional[str] = None
         self.stage_failures = 0  # async stages that raised
+        # saves skipped: the previous async stage still ran ("in_flight"), or
+        # the persister held the shard lock for its copy out of shm
+        self.skipped_stages = {"in_flight": 0, "persister_busy": 0}
+        # seconds storage saves waited for a stage in flight or a snapshot
+        self.storage_wait_s = 0.0
         if prefetch_restore is None:
             prefetch_restore = get_context().ckpt_prefetch_restore
         if prefetch_restore:
@@ -272,9 +277,11 @@ class CheckpointEngine:
     def save_to_memory(self, step: int, pytree: Any, extra: Optional[Dict] = None,
                        block: bool = True, for_storage: bool = False) -> bool:
         """Stage the state into host shm. Skips (returns False) while the
-        persister holds the shard lock or this engine's previous async stage
-        is still in flight (the lock is reentrant per owner, so the
-        staging thread would not block a second writer).
+        persister holds the shard lock (for its copy out of shm) or this
+        engine's previous async stage is still in flight (the lock is
+        reentrant per owner, so the staging thread would not block a second
+        writer). A save for storage (``for_storage``) is not dropped for
+        either: it waits both out, at most the saver timeout each.
 
         ``block=True`` returns after the copy to shm. ``block=False``
         returns after queuing a device-side snapshot (about one more copy
@@ -283,12 +290,19 @@ class CheckpointEngine:
         on); a thread stages the snapshot and releases the lock.
         """
         self._cancel_prefetch()
-        staging = self.staging_in_flight
-        if staging:
-            logger.warning("step %s: previous async stage still in flight", step)
-        if staging or not self._shard_lock.acquire(blocking=False):
+        t0 = time.monotonic()
+        if for_storage and self.staging_in_flight:
+            self._stage_thread.join(self._saver_timeout_s)
+        if self.staging_in_flight:
+            self.skipped_stages["in_flight"] += 1
+            logger.warning("skip save_to_memory step %s: previous async stage still in flight", step)
+            return False
+        if not self._shard_lock.acquire(blocking=for_storage, timeout=self._saver_timeout_s):
+            self.skipped_stages["persister_busy"] += 1
             logger.warning("skip save_to_memory step %s: a persister is busy", step)
             return False
+        if for_storage:
+            self.storage_wait_s += time.monotonic() - t0
         if not block and self._async_disabled:
             block = True
         if not block:

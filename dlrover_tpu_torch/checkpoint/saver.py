@@ -12,8 +12,22 @@ its copy into shared memory. Kept from the JAX module:
   persist-error markers and retention;
 - ``save_shm_to_storage``, the breakpoint save, also run on SIGTERM.
 
+The persist holds the shard lock only to copy the image out of shm, as the
+durable writer's ``_snapshot`` does (``dlrover_tpu/checkpoint/durable/
+writer.py``); the JAX saver streams the whole image to disk under the lock,
+and every stage of the trainer is skipped meanwhile. Here the event loop
+copies the newest queued step into a private host buffer (SAVE events that
+queued up behind a persist collapse into the newest, latest wins, as in the
+writer's ``submit``), and a writer thread writes that buffer to storage.
+There are two such buffers, allocated at first use and reused: one is
+written while the next storage step is copied into the other, so a storage
+step leaves shm before the trainer stages the step after it. An in-process
+lock covers each whole write, so the breakpoint save and the writer never
+write one step twice. The storage bytes are the JAX layout.
+
 Every wait is bounded: the runner and event loops poll their queues and
-check a stop flag, and :meth:`AsyncCheckpointSaver.shutdown` gives each
+check a stop flag, the snapshot waits for the shard lock at most
+``SNAPSHOT_LOCK_S``, and :meth:`AsyncCheckpointSaver.shutdown` gives each
 hand-off and join a deadline. Peer replication and the durable tier are
 not ported yet and raise when asked for.
 """
@@ -22,19 +36,29 @@ import os
 import queue as _queue
 import signal
 import threading
-from typing import Dict, Optional
+import time
+from collections import deque
+from typing import Deque, Dict, List, Optional, Tuple
+
+import numpy as np
 
 from ..common.config import get_context
 from ..common.log import logger
 from ..common.multi_process import LocalSocketClient, SharedLock, SharedQueue, _ipc_namespace
 from ..common.platform import not_ported
+from .meta import CheckpointMeta
 from .shm_handler import SharedMemoryHandler
 from .storage import PosixCheckpointStorage
 
 FACTORY_QUEUE = "ckpt_factory"
 EVENT_QUEUE = "ckpt_events"
-# how often the runner and event loops wake to check for a stop
+# how often the runner, event and writer loops wake to check for a stop
 _POLL_S = 1.0
+# the copy out of shm goes in chunks of this size
+SNAPSHOT_CHUNK = 64 << 20
+# the longest a snapshot waits for the shard lock (a stage in flight holds
+# it for its copy into shm)
+SNAPSHOT_LOCK_S = 60.0
 
 
 def lock_name(host_rank: int) -> str:
@@ -73,6 +97,18 @@ class AsyncCheckpointSaver:
         self._shard_lock = SharedLock(lock_name(host_rank), create=True)
         self._running = True
         self._persisted_steps: Dict[int, bool] = {}
+        # the private copies of the image (see the module docstring), the
+        # snapshot waiting to be written (latest wins) and the buffer being
+        # written
+        self._bufs: List[Optional[np.ndarray]] = [None, None]
+        self._slot = threading.Condition()
+        self._pending: Optional[Tuple[CheckpointMeta, int, float]] = None
+        self._writing: Optional[int] = None
+        self._snap_lock = threading.Lock()  # one copy out of shm at a time
+        self._persist_lock = threading.Lock()  # one write at a time
+        self._writer: Optional[threading.Thread] = None
+        # per persist: step, shard-lock hold of its snapshot, write seconds
+        self.persist_stats: Deque[Dict[str, float]] = deque(maxlen=1000)
 
     # -- factory / lifecycle ----------------------------------------------
 
@@ -240,30 +276,153 @@ class AsyncCheckpointSaver:
             etype = (event or {}).get("type")
             if etype == CheckpointEvent.EXIT:
                 return
-            if etype == CheckpointEvent.SAVE:
-                self._persist_step(event.get("step", -1))
+            if etype != CheckpointEvent.SAVE:
+                continue
+            step, exiting = event.get("step", -1), False
+            # latest wins: the SAVE events already queued behind this one
+            # supersede it, and only the newest step is copied out
+            while not exiting:
+                try:
+                    event = event_q.get(block=False)
+                except (_queue.Empty, OSError, RuntimeError):
+                    break
+                etype = (event or {}).get("type")
+                exiting = etype == CheckpointEvent.EXIT
+                if etype == CheckpointEvent.SAVE:
+                    step = max(step, event.get("step", -1))
+            self._snapshot_or_record(step)
+            if exiting:
+                return
 
-    def _persist_step(self, step: int) -> None:
-        """Drain shm to storage under the shard lock. The write streams
-        from the mapped segment in chunks, with no copy of the payload in
-        the agent's memory. The trainer's non-blocking acquire skips its
-        save while this holds the lock. A failure lands in a persist-error
-        marker, so the trainer's ``wait_saving`` fails fast."""
+    def _snapshot_or_record(self, step: int) -> bool:
+        """:meth:`_snapshot`, with a failure left in the persist-error
+        marker so that the trainer's ``wait_saving`` fails fast."""
         try:
-            with self._shard_lock:
-                meta = self.shm.read_meta()
-                if meta is None:
-                    logger.warning("save event for step %s but shm is empty", step)
-                    return
-                if self._persisted_steps.get(meta.step):
-                    # a breakpoint save that waited here for the event
-                    # loop's persist of the same step: written already
-                    return
-                if step >= 0 and meta.step != step:
-                    logger.warning("shm holds step %s, save event wanted %s; persisting shm step",
-                                   meta.step, step)
-                self.storage.write_shard(meta, self.shm.payload_reader(copy=False))
-                self._persisted_steps[meta.step] = True
+            return self._snapshot(step)
+        except Exception as e:  # noqa: BLE001 — reported through the marker
+            logger.exception("snapshot for the persist of step %s failed", step)
+            self._record_error(step, e)
+            return False
+
+    def _buffer(self, idx: int, nbytes: int) -> np.ndarray:
+        """Buffer ``idx``, grown to ``nbytes``. A new buffer's pages are
+        touched here, so that the copy out of shm does not pay their faults
+        under the shard lock."""
+        buf = self._bufs[idx]
+        if buf is None or buf.nbytes < nbytes:
+            self._bufs[idx] = None  # drop the old one before the new one
+            buf = np.empty(nbytes, dtype=np.uint8)
+            buf.fill(0)
+            self._bufs[idx] = buf
+        return buf
+
+    def _free_buffer(self) -> int:
+        """The buffer a snapshot fills: the pending snapshot's (latest wins),
+        else the one the writer is not reading."""
+        with self._slot:
+            if self._pending is not None:
+                return self._pending[1]
+            return 1 if self._writing == 0 else 0
+
+    def _snapshot(self, step: int) -> bool:
+        """Copy the staged image out of shm into a private buffer, under the
+        shard lock and for no longer than the copy, and leave it for the
+        writer, replacing a snapshot it has not taken yet (latest wins).
+        False when there is nothing new to write. A buffer too small for
+        the image is grown with the lock released, and the copy retried;
+        the segment's pages are faulted into this process before the lock
+        is taken (``fault_in``), so the hold is the copy alone."""
+        with self._snap_lock:
+            self._fault_in()
+            got = self._copy_out(step)
+            for _ in range(2):
+                if not isinstance(got, int):
+                    break
+                self._buffer(self._free_buffer(), got)
+                self._fault_in()  # the segment may be new since the last call
+                got = self._copy_out(step)
+            if isinstance(got, int):
+                raise RuntimeError(f"the staged image kept outgrowing the buffer ({got} bytes)")
+            if got is None:
+                return False
+        with self._slot:
+            self._pending = got
+            if self._writer is None or not self._writer.is_alive():
+                self._writer = threading.Thread(target=self._writer_loop, name="ckpt-writer",
+                                                daemon=True)
+                self._writer.start()
+            self._slot.notify_all()
+        return True
+
+    def _fault_in(self) -> None:
+        t0 = time.monotonic()
+        pages = self.shm.fault_in()
+        if pages:
+            logger.info("read %s pages of the shm segment into the saver in %.3f s", pages,
+                        time.monotonic() - t0)
+
+    def _copy_out(self, step: int):
+        """Under the shard lock: (meta, buffer index, lock hold) of the
+        staged image copied out; None when there is nothing to copy; or the
+        bytes a buffer must hold when the free one is too small (it is grown
+        outside the lock, to keep its page faults out of the hold)."""
+        if not self._shard_lock.acquire(timeout=SNAPSHOT_LOCK_S):
+            raise TimeoutError(f"shard lock not free within {SNAPSHOT_LOCK_S} s")
+        try:
+            t0 = time.monotonic()
+            meta = self.shm.read_meta()
+            if meta is None:
+                logger.warning("save event for step %s but shm is empty", step)
+                return None
+            if self._persisted_steps.get(meta.step):
+                return None  # written already (a breakpoint save)
+            with self._slot:
+                # the writer takes a pending snapshot only under this
+                # condition, so the buffer picked here is nobody else's
+                idx = self._free_buffer()
+                buf = self._bufs[idx]
+                self._pending = None  # refilled below, or regrown: latest wins
+                if buf is None or buf.nbytes < meta.total_bytes:
+                    return meta.total_bytes
+            if step >= 0 and meta.step != step:
+                logger.warning("shm holds step %s, save event wanted %s; persisting shm step",
+                               meta.step, step)
+            reader = self.shm.payload_reader(copy=False)
+            with memoryview(buf) as view:
+                for offset in range(0, meta.total_bytes, SNAPSHOT_CHUNK):
+                    n = min(SNAPSHOT_CHUNK, meta.total_bytes - offset)
+                    with reader(offset, n) as chunk:
+                        view[offset : offset + n] = chunk
+            return meta, idx, time.monotonic() - t0
+        finally:
+            self._shard_lock.release()
+
+    def _writer_loop(self) -> None:
+        while self._running:
+            with self._slot:
+                if self._pending is None:
+                    self._slot.wait(_POLL_S)
+                    continue
+            with self._persist_lock:
+                self._write_pending()
+
+    def _write_pending(self) -> None:
+        """Write the pending snapshot to storage and commit it. The caller
+        holds ``_persist_lock``, under which a step is marked written, so
+        no step is written twice. A failure lands in a persist-error
+        marker, so the trainer's ``wait_saving`` fails fast."""
+        with self._slot:
+            if self._pending is None:
+                return
+            (meta, idx, hold), self._pending = self._pending, None
+            self._writing = idx
+        try:
+            if self._persisted_steps.get(meta.step):
+                return
+            t0 = time.monotonic()
+            with memoryview(self._bufs[idx]) as view:
+                self.storage.write_shard(meta, lambda offset, n: view[offset : offset + n])
+            self._persisted_steps[meta.step] = True
             committed = self.storage.commit(meta.step, self.num_hosts)
             # Clear the fail-fast marker only when this persist covers its
             # step: an older image in shm means the marked stage never
@@ -274,12 +433,30 @@ class AsyncCheckpointSaver:
             keep = get_context().ckpt_keep_latest
             if committed and keep > 0:
                 self.storage.keep_latest(keep)
+            write_s = time.monotonic() - t0
+            self.persist_stats.append({"step": meta.step, "hold_s": hold, "write_s": write_s})
+            logger.info("persisted step %s: shard lock held %.4f s (snapshot), write %.4f s",
+                        meta.step, hold, write_s)
         except Exception as e:  # noqa: BLE001 — reported through the marker
-            logger.exception("persist failed for step %s", step)
-            try:
-                self.storage.record_persist_error(self.host_rank, step, repr(e))
-            except OSError:
-                logger.exception("could not record persist error marker")
+            logger.exception("persist failed for step %s", meta.step)
+            self._record_error(meta.step, e)
+        finally:
+            with self._slot:
+                self._writing = None
+
+    def _record_error(self, step: int, e: BaseException) -> None:
+        try:
+            self.storage.record_persist_error(self.host_rank, step, repr(e))
+        except OSError:
+            logger.exception("could not record persist error marker")
+
+    def _persist_step(self, step: int) -> None:
+        """Snapshot and write now, on the caller's thread (the breakpoint
+        save). Under ``_persist_lock`` it waits for a write in progress; a
+        step that write covered is not written again."""
+        with self._persist_lock:
+            self._snapshot_or_record(step)
+            self._write_pending()
 
     def save_shm_to_storage(self) -> bool:
         """Breakpoint save: persist whatever step is staged in shm."""
@@ -292,5 +469,15 @@ class AsyncCheckpointSaver:
         self._persist_step(meta.step)
         return True
 
-    def stop(self) -> None:
+    def stop(self, timeout: float = 10.0) -> None:
+        """Stop the writer after the write in progress, at most ``timeout``;
+        a snapshot not written yet is dropped (the breakpoint save writes
+        the staged step before an agent stops)."""
         self._running = False
+        with self._slot:
+            self._slot.notify_all()
+        writer = self._writer
+        if writer is not None and writer is not threading.current_thread():
+            writer.join(timeout)
+            if writer.is_alive():
+                logger.warning("checkpoint writer still running after %.0f s", timeout)

@@ -15,6 +15,7 @@ e.g. ``params/wte``, ``opt_state/mu/blocks.0.attn.wqkv`` or ``step``.
 """
 
 import contextlib
+import mmap
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -142,6 +143,7 @@ class SharedMemoryHandler:
     def __init__(self, host_rank: int = 0, name: str = ""):
         self.host_rank = host_rank
         self._segment = SharedMemorySegment(name or f"ckpt_shard_{host_rank}")
+        self._faulted = None  # the mapping fault_in has read
 
     # -- trainer side ------------------------------------------------------
 
@@ -204,6 +206,27 @@ class SharedMemoryHandler:
 
     def attach(self) -> bool:
         return self._segment.attach()
+
+    def fault_in(self) -> int:
+        """Read one byte of each page of the segment once per mapping, so
+        that later reads of this process do not fault: the first read of a
+        page of a fresh mapping does, and a reader under the shard lock
+        would otherwise pay every fault inside its hold. Returns the pages
+        read: 0 when this mapping was read already or there is no
+        segment."""
+        if not self._segment.attach():
+            return 0
+        mapping = self._segment._shm
+        if mapping is self._faulted:
+            return 0
+        pages = np.frombuffer(self._segment.buf, dtype=np.uint8)[:: mmap.PAGESIZE]
+        try:
+            pages.max(initial=0)
+            count = pages.size
+        finally:
+            del pages
+        self._faulted = mapping
+        return count
 
     def _meta_len(self) -> int:
         return int.from_bytes(self._segment.read(0, HEADER_LEN_BYTES), "little")

@@ -19,9 +19,14 @@ Without ``--device cpu`` the script needs a GPU and fails without one.
 
 Each worker prints JSON lines prefixed ``gpt_elastic``: ``boot`` (restart
 count, start-up stamps, whether the kernel library came from the build
-cache, the storage tracker before the restore), ``resume`` (the step and
-rung of the restore), one ``step`` per step (loss, wall-clock stamp,
-flash launches of the step) and ``done``.
+cache, the storage tracker before the restore, and whether the process was
+an adopted warm spare, with the spare's age at the hand-off and the time
+from the contract line to this script), ``resume`` (the step and rung of
+the restore), ``first_step`` (the first step of this process split into
+forward, backward, optimizer and loss fetch by device synchronisations,
+and its stage into shm), one ``step`` per step (loss, wall-clock stamp,
+flash launches of the step, the stages skipped so far) and ``done``. Only
+the first step synchronises between its parts.
 """
 
 import time
@@ -113,13 +118,44 @@ def main(argv=None) -> int:
     t_lib = time.time()
     cfg, state, inner_step, batches = build(args.small, device)
     t_model = time.time()
+    handoff = getattr(sys.modules.get("dlrover_tpu_torch.agent.warm_worker"), "HANDOFF", None)
+    spare = {"adopted": handoff is not None}
+    if handoff is not None:
+        started, contract = handoff["started"], handoff["contract"]
+        spare.update(spare_started=started, spare_import_s=handoff["ready"] - started,
+                     spare_age_s=contract - started, t_contract=contract,
+                     contract_to_script_s=T_START - contract)
     emit("boot", restart_count=ctx.restart_count, process_id=ctx.process_id,
          world_size=ctx.num_processes, device=str(device), lib_cached=lib_cached,
          tracker=tracker, t_start=T_START, t_imported=t_imported, t_cuda=t_cuda,
          t_engine=t_engine, t_lib=t_lib,
-         t_model=t_model, n_params=sum(p.numel() for p in state.params.values()))
+         t_model=t_model, n_params=sum(p.numel() for p in state.params.values()), **spare)
 
     launches = dict(fa.launches)
+    split = {}
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def step_fn(st, x, y):
+        """The train step; the first call of this process is split into its
+        parts by device synchronisations."""
+        if split:
+            return inner_step(st, x, y)
+        stamp = [time.perf_counter()]
+
+        def mark(part):
+            sync()
+            now = time.perf_counter()
+            split[part + "_s"] = split.get(part + "_s", 0.0) + now - stamp[0]
+            stamp[0] = now
+
+        st, loss = inner_step(st, x, y, mark=mark)
+        float(loss)
+        split["loss_fetch_s"] = time.perf_counter() - stamp[0]
+        split["t_end"] = time.perf_counter()
+        return st, loss
 
     def on_step(step, loss):
         loss = float(loss)  # synchronises: the stamp is the step's end
@@ -127,19 +163,26 @@ def main(argv=None) -> int:
         if step == loop.start_step:
             emit("resume", restored_step=loop.start_step - 1, restored_from=engine.restored_from,
                  restore_s=loop.last_restore_s, t_loop=t_loop)
+            # the first stage: the snapshot, the pinned buffer's allocation and
+            # the first copies to the host and into shm
+            staged = engine.wait_staged(600)
+            emit("first_step", step=step, staged=staged,
+                 stage_s=time.perf_counter() - split.pop("t_end"), **split)
         per_step = {k: fa.launches[k] - launches[k] for k in launches}
         launches.update(fa.launches)
-        emit("step", step=step, loss=loss, t=now, launches=per_step)
+        emit("step", step=step, loss=loss, t=now, launches=per_step,
+             skipped=dict(engine.skipped_stages), storage_wait_s=engine.storage_wait_s)
         if not math.isfinite(loss):
             raise RuntimeError(f"non-finite loss {loss} at step {step}")
 
-    loop = ElasticTrainLoop(engine, inner_step, ctx=ctx, max_steps=total_steps, memory_every=1,
+    loop = ElasticTrainLoop(engine, step_fn, ctx=ctx, max_steps=total_steps, memory_every=1,
                             storage_every=STORAGE_EVERY, log_every=10, on_step=on_step,
                             input_stage_fn=to_device(device), input_device=device)
     t_loop = time.time()
     loop.run(state, data_factory=lambda start: batches(start, total_steps))
     engine.close()
-    emit("done", steps=total_steps, stage_failures=engine.stage_failures)
+    emit("done", steps=total_steps, stage_failures=engine.stage_failures,
+         skipped=dict(engine.skipped_stages), storage_wait_s=engine.storage_wait_s)
     return 0
 
 

@@ -293,8 +293,12 @@ def _terminate_on_sigterm():
     return signal.signal(signal.SIGTERM, on_term)
 
 
-def run(ns: argparse.Namespace) -> int:
-    config = config_from_args(ns)
+def run(ns: argparse.Namespace, config: Optional[ElasticLaunchConfig] = None) -> int:
+    """Launch what ``ns`` asks for. ``config``, when given, replaces the one
+    made from ``ns``: a caller's way to set what has no flag, such as
+    ``ElasticLaunchConfig(warm_spare=False)``."""
+    if config is None:
+        config = config_from_args(ns)
     previous_handler = _terminate_on_sigterm()
     # the agent's saver and the worker's engine share the job's namespace
     os.environ[NodeEnv.JOB_NAME] = config.job_name

@@ -143,6 +143,10 @@ def init_train_state(
     return TrainState(step=0, params=params, opt_state=tx.init(params))
 
 
+def _no_mark(part: str) -> None:
+    del part
+
+
 def build_train_step(
     model,
     tx: AdamW,
@@ -160,6 +164,11 @@ def build_train_step(
 
     ``aux_loss_weight`` scales auxiliary losses (MoE load balance) in the
     JAX step; no model of the port has any yet, so it has no effect.
+
+    The step takes an optional ``mark``, called with ``"forward"``,
+    ``"backward"`` and ``"optimizer"`` as each part has been queued (for
+    each micro-batch, with accumulation): a caller that synchronises the
+    device there splits the step's time by part.
     """
     del aux_loss_weight
     accum = max(1, int(grad_accum_steps))
@@ -168,10 +177,12 @@ def build_train_step(
     # [B, T] token losses (pair with token_loss_mean), not [B, T, V] logits.
     fused_ce = model.config.ce_chunk > 0
 
-    def grads_of(params, inputs, targets):
+    def grads_of(params, inputs, targets, mark):
         out = model(inputs, targets=targets) if fused_ce else model(inputs)
         loss = loss_fn(out, targets)
+        mark("forward")
         grads = torch.autograd.grad(loss, list(params.values()))
+        mark("backward")
         return loss.detach(), dict(zip(params, grads))
 
     def slice_micro(x):
@@ -181,9 +192,9 @@ def build_train_step(
             )
         return x.reshape((accum, x.shape[0] // accum) + tuple(x.shape[1:]))
 
-    def step_fn(state: TrainState, inputs, targets):
+    def step_fn(state: TrainState, inputs, targets, mark: Callable[[str], None] = _no_mark):
         if accum == 1:
-            loss, grads = grads_of(state.params, inputs, targets)
+            loss, grads = grads_of(state.params, inputs, targets, mark)
         else:
             loss = torch.zeros((), dtype=torch.float32, device=inputs.device)
             grads = {
@@ -191,7 +202,7 @@ def build_train_step(
                 for n, p in state.params.items()
             }
             for mi, mt in zip(slice_micro(inputs), slice_micro(targets)):
-                micro_loss, micro_grads = grads_of(state.params, mi, mt)
+                micro_loss, micro_grads = grads_of(state.params, mi, mt, mark)
                 loss += micro_loss
                 for n, g in micro_grads.items():
                     grads[n] += g.float()
@@ -200,6 +211,7 @@ def build_train_step(
                 n: (g / accum).to(state.params[n].dtype) for n, g in grads.items()
             }
         opt_state = tx.update(grads, state.opt_state, state.params)
+        mark("optimizer")
         return TrainState(state.step + 1, state.params, opt_state), loss
 
     return step_fn

@@ -339,7 +339,7 @@ def test_agent_hands_the_worker_its_ipc_namespace(master1, tmp_path):
     assert env["DLROVER_IPC_NAMESPACE"] == os.environ["DLROVER_JOB_NAME"]
 
 
-@pytest.mark.parametrize("field,value", [("warm_spare", True), ("soft_remesh", True),
+@pytest.mark.parametrize("field,value", [("soft_remesh", True),
                                          ("profile", "on"), ("numa_affinity", True),
                                          ("compile_cache_dir", "/x"), ("network_check", True),
                                          ("auto_tunning", True), ("exclude_straggler", True)])

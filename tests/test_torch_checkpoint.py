@@ -570,6 +570,224 @@ def test_breakpoint_save(tmp_path):
         engine.close()
 
 
+# -- the persist off the shard lock -----------------------------------------
+
+
+def _wait(cond, timeout=30.0):
+    deadline = time.monotonic() + timeout
+    while not cond() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return cond()
+
+
+def _saver():
+    """The in-process saver, once its runner has built it (the engine's
+    shard lock can come up a moment before the instance is published)."""
+    deadline = time.monotonic() + 30
+    while AsyncCheckpointSaver._instance is None and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return AsyncCheckpointSaver._instance
+
+
+def _blocking_writes(saver):
+    """Make the saver's ``write_shard`` record each step it writes and wait
+    for ``release`` first; returns (release, entered, written)."""
+    release, entered, written = threading.Event(), threading.Event(), []
+    real = saver.storage.write_shard
+
+    def write_shard(meta, payload):
+        written.append(meta.step)
+        entered.set()
+        assert release.wait(30.0), "the test never released the write"
+        return real(meta, payload)
+
+    saver.storage.write_shard = write_shard
+    return release, entered, written
+
+
+def test_a_stage_lands_while_a_persist_writes(tmp_path):
+    """The shard lock covers the copy out of shm, not the write: while the
+    write of step N blocks, a blocking stage of N + 1 lands; storage then
+    holds step N, hash-equal to the state staged at N, and shm N + 1."""
+    _, _, state = _small_state()
+    engine = _engine(tmp_path)
+    saver = _saver()
+    release, entered, written = _blocking_writes(saver)
+    try:
+        assert engine.save_to_storage(4, state)
+        assert entered.wait(30.0)
+        staged_at_4 = [(p, _bytes(tshm.leaf_tensor(x))) for p, x in tshm.flatten_with_path(state)]
+        with torch.no_grad():
+            for p in state.params.values():
+                p.add_(1.0)
+        t0 = time.monotonic()
+        assert engine.save_to_memory(5, state, block=True)
+        assert time.monotonic() - t0 < 10
+        assert engine.skipped_stages == {"in_flight": 0, "persister_busy": 0}
+        release.set()
+        assert engine.wait_saving(timeout=30)
+        assert written == [4] and engine.storage.latest_step() == 4
+        arrays = engine.storage.load_step_host(4)
+        assert [(p, _bytes(arrays[p])) for p, _ in staged_at_4] == staged_at_4
+        assert engine.shm.read_meta().step == 5
+        assert _wait(lambda: saver.persist_stats)  # recorded just after the commit
+        (stat,) = saver.persist_stats
+        assert stat["step"] == 4 and 0 <= stat["hold_s"] < stat["write_s"]
+    finally:
+        release.set()
+        engine.close()
+
+
+def test_a_breakpoint_save_racing_the_persist_writes_the_step_once(tmp_path):
+    engine = _engine(tmp_path)
+    saver = _saver()
+    release, entered, written = _blocking_writes(saver)
+    try:
+        assert engine.save_to_storage(7, _w(7.0))
+        assert entered.wait(30.0)  # the event loop's persist of 7 is writing
+        done = threading.Event()
+        racer = threading.Thread(target=lambda: (saver.save_shm_to_storage(), done.set()),
+                                 daemon=True)
+        racer.start()
+        time.sleep(0.2)
+        assert not done.is_set()  # the breakpoint save waits for the write
+        release.set()
+        racer.join(30.0)
+        assert done.is_set() and engine.wait_saving(timeout=30)
+        assert written == [7] and engine.storage.latest_step() == 7
+    finally:
+        release.set()
+        engine.close()
+
+
+def test_save_events_behind_a_blocked_persist_collapse_to_the_newest(tmp_path):
+    """Latest wins: five storage saves queued behind a blocked write lead to
+    one more write, of the newest step, and ``wait_saving`` then holds."""
+    engine = _engine(tmp_path)
+    saver = _saver()
+    release, entered, written = _blocking_writes(saver)
+    try:
+        assert engine.save_to_storage(10, _w(10.0))
+        assert entered.wait(30.0)
+        for step in range(11, 16):
+            assert engine.save_to_storage(step, _w(float(step)))
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and not (
+                saver._pending is not None and saver._pending[0].step == 15):
+            time.sleep(0.01)
+        assert saver._pending[0].step == 15  # the newest snapshot waits for the writer
+        release.set()
+        assert engine.wait_saving(timeout=30)
+        assert written == [10, 15] and engine.storage.latest_step() == 15
+        engine.shm.unlink()
+        assert engine.load(_zeros())[0] == 15 and engine.restored_from == "storage"
+    finally:
+        release.set()
+        engine.close()
+
+
+def test_save_events_drain_to_the_newest_before_the_snapshot(tmp_path):
+    """The SAVE events that queued up while the event loop was busy are
+    drained at once, and only the newest step is copied out."""
+    engine = _engine(tmp_path)
+    saver = _saver()
+    snapshots = []
+    real = saver._snapshot
+    saver._snapshot = lambda step: (snapshots.append(step), real(step))[1]
+    try:
+        assert engine.save_to_memory(1, _w(1.0))
+        assert engine._shard_lock.acquire(timeout=30)  # the loop's first snapshot waits
+        engine._event_q.put({"type": "save", "step": 1})
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and not snapshots:
+            time.sleep(0.01)
+        for step in (2, 3, 4):
+            engine._event_q.put({"type": "save", "step": step})
+        assert engine.save_to_memory(4, _w(4.0))  # reentrant: this engine holds the lock
+        engine._shard_lock.release()
+        engine._latest_storage_step = 4
+        assert engine.wait_saving(timeout=30)
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and len(snapshots) < 2:
+            time.sleep(0.01)
+        assert snapshots == [1, 4] and engine.storage.latest_step() == 4
+    finally:
+        engine.close()
+
+
+def test_racing_persists_write_each_step_once_under_a_short_switch_interval(tmp_path):
+    """The event loop, the writer and several breakpoint savers share the
+    saver's slot and buffers: with the interpreter switching threads every
+    10 us, storage saves of 12 steps raced by 4 breakpoint threads write no
+    step twice, and the newest step is committed with its own bytes."""
+    engine = _engine(tmp_path)
+    saver = _saver()
+    written, lock = collections.Counter(), threading.Lock()
+    real = saver.storage.write_shard
+
+    def counting_write(meta, payload):
+        with lock:
+            written[meta.step] += 1
+        return real(meta, payload)
+
+    saver.storage.write_shard = counting_write
+    stop = threading.Event()
+
+    def racer():
+        while not stop.is_set():
+            saver.save_shm_to_storage()
+
+    racers = [threading.Thread(target=racer, daemon=True) for _ in range(4)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for t in racers:
+            t.start()
+        for step in range(1, 13):
+            assert engine.save_to_storage(step, _w(float(step), n=1 << 16))
+        assert engine.wait_saving(timeout=60)
+    finally:
+        stop.set()
+        for t in racers:
+            t.join(30)
+        sys.setswitchinterval(interval)
+        engine.close()
+    assert not any(t.is_alive() for t in racers)
+    assert written and max(written.values()) == 1, written
+    assert engine.storage.latest_step() == 12
+    arrays = engine.storage.load_step_host(12)
+    assert torch.equal(arrays["w"], torch.full((1 << 16,), 12.0))
+
+
+def test_a_storage_save_waits_out_a_stage_in_flight(tmp_path, monkeypatch):
+    """A memory save skips while the previous async stage runs; a storage
+    save waits for it instead of dropping its step."""
+    engine = _engine(tmp_path)
+    release, entered = threading.Event(), threading.Event()
+    real_write = engine.shm.write_image
+
+    def slow_write(*a, **kw):
+        entered.set()
+        release.wait(30.0)
+        return real_write(*a, **kw)
+
+    monkeypatch.setattr(engine.shm, "write_image", slow_write)
+    try:
+        assert engine.save_to_memory(1, _w(1.0), block=False)
+        assert entered.wait(30.0)  # the stage of step 1 is in flight
+        assert not engine.save_to_memory(2, _w(2.0), block=False)
+        assert engine.skipped_stages["in_flight"] == 1
+        threading.Timer(0.3, release.set).start()
+        monkeypatch.setattr(engine.shm, "write_image", real_write)
+        assert engine.save_to_storage(3, _w(3.0), block=False)
+        assert engine.storage_wait_s >= 0.2
+        assert engine.wait_staged(30) and engine.wait_saving(30)
+        assert engine.storage.latest_step() == 3
+    finally:
+        release.set()
+        engine.close()
+
+
 def test_checkpointer_api(tmp_path):
     ckpt = Checkpointer(str(tmp_path / "ckpt"), standalone=True)
     tree = {"a": torch.ones(2, 2)}

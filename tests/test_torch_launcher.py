@@ -23,9 +23,9 @@ from dlrover_tpu_torch.master.local_master import LocalJobMaster
 from dlrover_tpu_torch.rpc.client import MasterClient
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# fields whose defaults differ on purpose: the device, and features the
+# fields whose defaults differ on purpose: the device, and a feature the
 # port does not have (off here, on in the JAX package)
-_DIFFERENT = {"accelerator", "warm_spare", "soft_remesh"}
+_DIFFERENT = {"accelerator", "soft_remesh"}
 
 
 @pytest.fixture(autouse=True)
@@ -243,15 +243,17 @@ def test_example_without_cpu_flag_fails_without_a_gpu(tmp_path):
 
 
 def test_flagship_command_survives_a_worker_sigkill_on_the_cpu(tmp_path, monkeypatch):
-    """The CPU twin of chip_smoke.py's phase 6: the real tpurun --standalone
-    job of the example at the small size; the worker is SIGKILLed once it
-    has staged step 10, its agent persists the staged step and restarts
-    it, and the new worker resumes from shm; the launcher exits 0."""
+    """The CPU twin of chip_smoke.py's phase 6, run A: the real tpurun
+    --standalone job of the example at the small size, with the warm spare
+    on (the default); the worker is SIGKILLed once it has staged step 10
+    and a spare is ready, its agent persists the staged step and adopts the
+    spare as the new worker, which resumes from shm; the launcher exits 0
+    and leaves no process behind."""
     sys.path.insert(0, _REPO)
     import chip_smoke
     from dlrover_tpu_torch.examples import gpt_elastic
 
-    steps = 16
+    steps = chip_smoke.TPURUN_STEPS
     # the uninterrupted run of the same steps, in this process
     _, state, step_fn, batches = gpt_elastic.build(small=True, device=torch.device("cpu"))
     reference = {}
@@ -271,3 +273,9 @@ def test_flagship_command_survives_a_worker_sigkill_on_the_cpu(tmp_path, monkeyp
                                            + rec["respawn_s"] + rec["restore_s"]
                                            + rec["first_step_s"])
     assert 0 <= rec["detect_s"] < 10
+    assert facts["how"] == rec["how"] == "warm" and timings["warm_spare"]
+    assert facts["pids"]["worker1"] in facts["spares"]  # the adopted spare
+    assert all(not s["nvidia_fds"] and s["samples"] > 0 for s in timings["spares"])
+    assert set(rec["first_step_split"]) >= {"forward_s", "backward_s", "optimizer_s",
+                                            "loss_fetch_s", "stage_s"}
+    assert 0 <= rec["spare"]["contract_to_script_s"] < rec["spare"]["spare_age_s"]

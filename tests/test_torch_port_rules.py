@@ -7,6 +7,7 @@ in the repository, and a failed build raises with nvcc's own messages.
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -33,7 +34,8 @@ _POISON = (
 
 _SCRIPTS = [os.path.join(_REPO, "chip_smoke.py")] + [
     os.path.join(_REPO, "scripts", name)
-    for name in ("torch_step_profile.py", "kernel_ab.py", "ckpt_overhead.py")
+    for name in ("torch_step_profile.py", "kernel_ab.py", "ckpt_overhead.py",
+                 "first_step_split.py")
 ]
 
 
@@ -72,7 +74,7 @@ _CONTROL_PLANE = (
     "master/kv_store", "master/rdzv/manager", "master/diagnosis/action", "master/job_context",
     "master/node/job_manager", "master/monitor/perf_monitor", "master/servicer",
     "master/local_master", "master/args", "master/main", "agent/config", "agent/worker",
-    "agent/rendezvous", "agent/diagnosis_agent", "agent/training_agent",
+    "agent/rendezvous", "agent/diagnosis_agent", "agent/training_agent", "agent/warm_worker",
     "diagnosis/inference_chain", "diagnosis/operators", "diagnosis/diagnostician",
     "launcher/elastic_run", "launcher/main",
 )
@@ -158,6 +160,21 @@ def test_chip_smoke_trainer_runs_with_jax_and_msgpack_poisoned(tmp_path):
                           text=True, timeout=300, env=env)
     assert proc.returncode == 0, proc.stderr
     assert '"step": -1' in proc.stdout and '"hash"' in proc.stdout
+
+
+def test_the_warm_spare_preloads_and_hands_off_with_jax_grpc_and_msgpack_poisoned(tmp_path):
+    """The spare's own preloads (torch and the training modules) import
+    nothing forbidden, and the script it becomes runs."""
+    script = tmp_path / "ok.py"
+    script.write_text("import sys\nprint('handed', sys.argv[1:], flush=True)\n")
+    contract = {"env": {"DLROVER_RESTART_COUNT": "1"}, "entrypoint": str(script), "args": ["a"]}
+    code = (_POISON + "from dlrover_tpu_torch.agent import warm_worker\n"
+            "sys.exit(warm_worker.main())\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, capture_output=True,
+                          text=True, timeout=300, input=json.dumps(contract) + "\n",
+                          env={**os.environ, "PYTHONPATH": _REPO})
+    assert proc.returncode == 0, proc.stderr
+    assert "handed ['a']" in proc.stdout and "cannot preload" not in proc.stderr
 
 
 @pytest.mark.parametrize(
