@@ -16,11 +16,12 @@ and prints no result):
    kernels issues no wgmma or no TMA load; then holds each of them against
    its plain PyTorch version, run at the kernel's own tile sizes
    (``kernel_tiles``), on the same bf16 inputs at the training shape (B=8,
-   T=1024, H=12, D=64, causal) and at ragged shapes (T=1000; D=128
+   T=1024, H=12, D=64, causal), at phase 9's (B=16) and at ragged shapes (T=1000; D=128
    non-causal at batch 1, D=64 causal; causal q_len 384 < kv_len 1000;
    causal q_len > kv_len at a ragged kv_len, D=64 and D=128), and times
    kernel, plain version and ``scaled_dot_product_attention`` (the
-   yardstick, never called by the port) with CUDA events;
+   yardstick, never called by the port) with CUDA events at the training
+   shape and at phase 9's;
 4. main path: GPT-2 small at full width (flash attention, remat, seq
    1024) takes a few training steps at batch 8 on seeded random tokens
    through ``init_train_state`` / ``build_train_step``; the losses must be
@@ -118,15 +119,29 @@ and prints no result):
    master's shard checkpoint and reports the samples the killed workers'
    open and prefetched shards leave out of the run, with the ``get_task``
    RPC's seconds, the training thread's wait for a batch, the median step
-   against phase 7's and both nodes' recovery in phase 7's columns.
+   against phase 7's and both nodes' recovery in phase 7's columns;
+9. the Llama family: Llama-125M at ``bench.py``'s width (vocab 32000, 12
+   layers, 12 heads over 4 KV heads of 64, embed 768, SwiGLU 2048; flash,
+   remat) and its MoE variant (4 experts, top-2, every 2nd block) each take
+   10 steps at batch 16, seq 1024 on seeded tokens from seed-0 weights
+   through ``init_train_state`` / ``build_train_step``, the MoE's
+   load-balance term in its loss. Each variant's losses must be finite,
+   the first within 0.5 of ln(vocab), each step must launch 24/12/12 flash
+   kernels, and flash and dense attention must give the same token losses
+   on a 2x256 slice; the MoE's aux terms must be finite and positive and
+   every expert's ``w_gate`` must get a gradient; its state after step 8,
+   staged to shm through ``CheckpointEngine`` and restored into a model
+   built afresh, must be hash-equal and give the uninterrupted run's step-9
+   loss. It reports each variant's parameter count, median step, tokens/s
+   and peak memory, and the dense model's MFU.
 
 Phase 6 also times each async stage of its workers from the step to the
 image in shm (seen by the 0.1 s sampler that watches the spares), beside
 a persist of the agent or alone.
 
 The output ends with the checkpoint numbers, the ``tpurun`` timings, the
-two-node numbers, the sharded-input numbers and the kernel table as one
-JSON line each, the card's name and power limit, and ``{"ok": true,
+two-node numbers, the sharded-input numbers, the Llama numbers and the
+kernel table as one JSON line each, the card's name and power limit, and ``{"ok": true,
 "device": {...}}`` as the last line.
 
     python3 chip_smoke.py --multi-gpu-world
@@ -138,6 +153,7 @@ and prints one JSON line; ``--device cpu --small`` rehearses it on the
 CPU as a world of two over gloo.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -155,6 +171,8 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 MAIN_SHAPE = dict(B=8, T=1024, H=12, D=64, causal=True)
+# phase 9's shape: Llama-125M at batch 16, K/V repeated to the 12 query heads
+LLAMA_SHAPE = dict(B=16, T=1024, H=12, D=64, causal=True)
 # ragged edges (T % 128 != 0), head_dim 128, batch 1, causal ragged tiles,
 # causal q_len < kv_len, where the end-aligned diagonal crosses 128-row tiles
 # off their corners, and causal q_len > kv_len at a ragged kv_len, where the
@@ -405,6 +423,65 @@ def kernel_phase(fa, shape, gen, timed):
     return checks, times
 
 
+def flash_vs_dense(model, tokens, targets):
+    """The trained weights of ``model`` (a GPT or a Llama) through the flash
+    kernels and through the plain dense attention must give the same
+    per-token losses on a 2x256 slice. The model runs in bf16 and the two
+    paths round at different points (the dense path rounds the logits and
+    probabilities to bf16, the kernels keep them in fp32), so a token's loss
+    may move by a few 1e-2: the mean may differ by 2e-2, a token by 0.25.
+    In a MoE model such a rounding can also move a token's top-2 experts,
+    and then its output and those of the tokens after it differ by far
+    more; so the max is taken over the tokens of each row before its first
+    token whose top-2 set differs in some MoE block (a token's attention
+    sees only the tokens before it; its second choice's place in an
+    expert's queue counts the row's first choices, which matters only
+    where the row fills the expert), and the moved tokens are counted."""
+    import torch
+
+    from dlrover_tpu_torch.models import llama
+
+    dense = type(model)(dataclasses.replace(model.config, attention_impl="dense"),
+                        device=model.device)
+    dense.load_state_dict(model.state_dict())
+    part = min(256, tokens.shape[1])
+    small_in, small_tgt = tokens[:2, :part], targets[:2, :part]
+    routes = {id(model): [], id(dense): []}
+
+    def top2(key):
+        def hook(mlp, args):
+            logits = torch.einsum("bsd,de->bse", args[0].float(), mlp.w_router)
+            routes[key].append(logits.topk(2, dim=-1).indices.sort(dim=-1).values)
+        return hook
+
+    hooks = [b.mlp.register_forward_pre_hook(top2(id(m)))
+             for m in (model, dense) for b in m.blocks if isinstance(b.mlp, llama.MoeMlp)]
+    try:
+        with torch.no_grad():
+            flash_tl = model(small_in, targets=small_tgt)
+            dense_tl = dense(small_in, targets=small_tgt)
+    finally:
+        for h in hooks:
+            h.remove()
+    _check(flash_tl.shape == (2, part) and bool(torch.isfinite(flash_tl).all()),
+           f"bad flash token losses {tuple(flash_tl.shape)}")
+    moved = torch.zeros((2, part), dtype=torch.bool, device=flash_tl.device)
+    for a, b in zip(routes[id(model)], routes[id(dense)]):
+        moved |= (a != b).any(-1)
+    first = torch.where(moved.any(1), moved.float().argmax(1), part)
+    before = torch.arange(part, device=moved.device)[None, :] < first[:, None]
+    diff = (flash_tl - dense_tl).abs()
+    out = {"mean_diff": float((flash_tl.mean() - dense_tl.mean()).abs()),
+           "max_diff": float(diff.max()), "tokens": 2 * part,
+           "tokens_moved": int(moved.sum()), "tokens_before_a_move": int(before.sum()),
+           "max_diff_before_a_move": float(diff[before].max()) if bool(before.any()) else None}
+    log(f"  flash vs dense token losses: {json.dumps(out)}")
+    _check(out["mean_diff"] <= 2e-2 and out["tokens_before_a_move"] > 0
+           and out["max_diff_before_a_move"] <= 0.25,
+           f"flash and dense attention paths disagree: {out}")
+    return out
+
+
 def main_path(fa, gpt, train_step, n_steps=10, batch=8, seq=1024):
     import numpy as np
     import torch
@@ -445,24 +522,7 @@ def main_path(fa, gpt, train_step, n_steps=10, batch=8, seq=1024):
             raise AssertionError(
                 f"{name} launched {launches[name]} times, expected {n * n_steps}")
 
-    # The trained weights through the flash kernels and through the plain
-    # dense attention must give the same per-token losses. The model runs in
-    # bf16 and the two paths round at different points (the dense path
-    # rounds the logits and probabilities to bf16, the kernels keep them in
-    # fp32), so a token's loss may move by a few 1e-2.
-    dense = gpt.GPT(dataclasses.replace(cfg, attention_impl="dense"))
-    dense.load_state_dict(model.state_dict())
-    small_in, small_tgt = tokens[:2, :256], targets[:2, :256]
-    with torch.no_grad():
-        flash_tl = model(small_in, targets=small_tgt)
-        dense_tl = dense(small_in, targets=small_tgt)
-    if flash_tl.shape != (2, 256) or not torch.isfinite(flash_tl).all():
-        raise AssertionError(f"bad flash token losses {flash_tl.shape}")
-    mean_diff = float((flash_tl.mean() - dense_tl.mean()).abs())
-    max_diff = float((flash_tl - dense_tl).abs().max())
-    log(f"  flash vs dense token losses: mean diff {mean_diff:.3e}, max diff {max_diff:.3e}")
-    if mean_diff > 2e-2 or max_diff > 0.25:
-        raise AssertionError("flash and dense attention paths disagree")
+    cmp = flash_vs_dense(model, tokens, targets)
 
     steady = statistics.median(step_s[1:])
     flops_per_token = 6 * n_params + 12 * cfg.num_layers * cfg.embed_dim * seq
@@ -476,7 +536,7 @@ def main_path(fa, gpt, train_step, n_steps=10, batch=8, seq=1024):
         "losses": losses,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches,
-        "flash_vs_dense_mean_loss_diff": mean_diff,
+        "flash_vs_dense": cmp,
     }
 
 
@@ -756,13 +816,11 @@ def bench(engine, state, step_fn, batches, device):
     }
 
 
-def checkpoint_phase(work, job, device="cuda", small=False, n_params=None, timeout=600,
-                     run_bench=True):
-    """Phase 5. This process runs the saver (the agent's part); trainers run
-    as child processes under DLROVER_JOB_NAME ``job`` with storage and
-    sockets under ``work``. Raises on the first failed check; returns the
-    phase's facts and the checkpoint numbers (None without ``run_bench``).
-    The environment and socket directory it sets are restored on return."""
+@contextlib.contextmanager
+def _job_ipc(work, job):
+    """DLROVER_JOB_NAME ``job`` and the port's sockets under ``work`` for
+    the body; the environment and the socket directory are restored
+    after it."""
     from dlrover_tpu_torch.common import multi_process
 
     names = ("DLROVER_JOB_NAME", "DLROVER_IPC_DIR", "DLROVER_IPC_NAMESPACE")
@@ -772,7 +830,7 @@ def checkpoint_phase(work, job, device="cuda", small=False, n_params=None, timeo
     os.environ["DLROVER_IPC_DIR"] = multi_process.SOCKET_TMP_DIR = os.path.join(work, "sockets")
     os.environ.pop("DLROVER_IPC_NAMESPACE", None)
     try:
-        return _checkpoint_phase(work, job, device, small, n_params, timeout, run_bench)
+        yield
     finally:
         for name, value in saved_env.items():
             if value is None:
@@ -780,6 +838,17 @@ def checkpoint_phase(work, job, device="cuda", small=False, n_params=None, timeo
             else:
                 os.environ[name] = value
         multi_process.SOCKET_TMP_DIR = saved_dir
+
+
+def checkpoint_phase(work, job, device="cuda", small=False, n_params=None, timeout=600,
+                     run_bench=True):
+    """Phase 5. This process runs the saver (the agent's part); trainers run
+    as child processes under DLROVER_JOB_NAME ``job`` with storage and
+    sockets under ``work``. Raises on the first failed check; returns the
+    phase's facts and the checkpoint numbers (None without ``run_bench``).
+    The environment and socket directory it sets are restored on return."""
+    with _job_ipc(work, job):
+        return _checkpoint_phase(work, job, device, small, n_params, timeout, run_bench)
 
 
 def _checkpoint_phase(work, job, device, small, n_params, timeout, run_bench):
@@ -2324,6 +2393,188 @@ def shard_phase(work, job, device="cuda", small=False, total_steps=TPURUN_STEPS,
     return facts, numbers
 
 
+# -- phase 9: the Llama family ------------------------------------------------
+
+# Llama-125M as bench.py:1081-1085 trains it: vocab 32000, 12 layers, 12 heads
+# over 4 KV heads of 64, embed 768, SwiGLU 2048, flash, remat; batch 16, seq
+# 1024. Its MoE variant (bench.py:1097) makes every 2nd block's MLP 4 experts
+# with top-2 routing.
+LLAMA_125M = dict(vocab_size=32000, max_seq_len=1024, num_layers=12, num_heads=12,
+                  num_kv_heads=4, head_dim=64, embed_dim=768, mlp_dim=2048,
+                  attention_impl="flash", use_remat=True)
+LLAMA_BATCH = (16, 1024)
+LLAMA_SMALL = dict(vocab_size=256, max_seq_len=32, num_layers=2, num_heads=4, num_kv_heads=2,
+                   head_dim=16, embed_dim=64, mlp_dim=128, attention_impl="flash",
+                   use_remat=True)
+LLAMA_SMALL_BATCH = (4, 32)
+LLAMA_MOE = dict(num_experts=4, moe_every=2)
+LLAMA_STEPS = 10
+# the step from the restored MoE state against the uninterrupted run's
+LLAMA_RESUME_TOL = 1e-5
+# checks that need the card's kernels; the CPU twin leaves them out by name
+LLAMA_CARD_ONLY = ("launches",)
+
+
+def llama_phase(work, job, device="cuda", small=False, steps=LLAMA_STEPS):
+    """Phase 9: Llama-125M and its MoE variant, each ``steps`` steps from
+    seed-0 weights on one seeded batch through ``init_train_state`` /
+    ``build_train_step`` (AdamW from ``default_optimizer()``, the MoE
+    load-balance term at ``aux_loss_weight`` 0.01). The MoE state after step
+    ``steps - 2`` is staged to shm through a standalone ``CheckpointEngine``
+    under DLROVER_JOB_NAME ``job`` (sockets and storage under ``work``), and
+    restored into a model built afresh. Raises on the first failed check;
+    returns the phase's numbers. The environment and socket directory it
+    sets are restored on return, and the job's shm segments unlinked."""
+    try:
+        with _job_ipc(work, job):
+            return _llama_phase(work, device, small, steps)
+    finally:
+        _unlink_job_segments([job])
+
+
+def _llama_phase(work, device, small, steps):
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.models import llama
+
+    cuda = torch.device(device).type == "cuda"
+    base, (batch, seq) = (LLAMA_SMALL, LLAMA_SMALL_BATCH) if small else (LLAMA_125M, LLAMA_BATCH)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, base["vocab_size"], (batch, seq))).to(device)
+    targets = torch.roll(tokens, -1, dims=1)
+    skipped = [] if cuda else list(LLAMA_CARD_ONLY)
+    if skipped:
+        log(f"  checks left out without the card: {skipped}")
+    out = {"card": card_line() if cuda else "CPU", "batch": batch, "seq_len": seq,
+           "steps": steps, "skipped_checks": skipped}
+    for label, over in (("dense", {}), ("moe", LLAMA_MOE)):
+        cfg = llama.LlamaConfig(**base, **over)
+        log(f"  {label}: {cfg}")
+        out[label] = _llama_variant(cfg, tokens, targets, device, steps, work)
+        log(f"  {label}: " + json.dumps(out[label]))
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def _llama_variant(cfg, tokens, targets, device, steps, work):
+    import torch
+
+    from dlrover_tpu_torch.checkpoint.engine import CheckpointEngine
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.parallel import train_step
+
+    cuda = torch.device(device).type == "cuda"
+    moe = cfg.num_experts > 0
+    batch, seq = tokens.shape
+
+    def build(seed):
+        model = llama.Llama(cfg, device=device, seed=seed)
+        tx = train_step.default_optimizer()
+        state = train_step.init_train_state(model, tokens, tx, device=device, seed=seed)
+        return model, state, train_step.build_train_step(model, tx, llama.llama_loss)
+
+    model, state, step_fn = build(0)
+    n_params = sum(p.numel() for p in state.params.values())
+    engine = staged = None
+    if moe:
+        image = 12 * n_params + 16  # fp32 params, mu and nu; step and count
+        free = shutil.disk_usage("/dev/shm").free
+        log(f"  /dev/shm free {free} bytes; the MoE image {image} bytes")
+        _check(free > 1.1 * image, "/dev/shm cannot hold the MoE train state")
+        engine = CheckpointEngine(os.path.join(work, "ckpt"), standalone=True,
+                                  prefetch_restore=False)
+    try:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        losses, step_s, per_step = [], [], []
+        for i in range(steps):
+            before = dict(fa.launches)
+            t0 = time.perf_counter()
+            state, loss = step_fn(state, tokens, targets)
+            loss = float(loss)  # synchronises
+            step_s.append(time.perf_counter() - t0)
+            losses.append(loss)
+            per_step.append({k: fa.launches[k] - before[k] for k in before})
+            if moe and i == steps - 2:
+                t0 = time.perf_counter()
+                _check(engine.save_to_memory(i, state), f"the stage of step {i} was skipped")
+                staged = dict(step=i, hash=state_hash(state), stage_s=time.perf_counter() - t0)
+        launches = dict(fa.launches)
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+        log(f"  losses {losses}")
+        log(f"  step seconds {step_s}")
+        log(f"  launches {launches} over {steps} steps")
+        _check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+        _check(abs(losses[0] - math.log(cfg.vocab_size)) <= 0.5,
+               f"first loss {losses[0]} is not near ln(vocab) {math.log(cfg.vocab_size)}")
+        expect = {"fwd": 2 * cfg.num_layers, "bwd_dkdv": cfg.num_layers,
+                  "bwd_dq": cfg.num_layers}  # forward twice: remat recomputes it
+        if cuda:
+            bad = [(i, n) for i, n in enumerate(per_step) if n != expect]
+            _check(not bad, f"steps with other flash launches than {expect}: {bad[:3]}")
+
+        cmp = flash_vs_dense(model, tokens, targets)
+
+        steady = statistics.median(step_s[1:])
+        result = {
+            "model": f"llama-{'moe-' if moe else ''}{n_params / 1e6:.0f}M", "n_params": n_params,
+            "first_step_s": step_s[0], "step_s": steady, "tokens_per_s": batch * seq / steady,
+            "peak_mem_gb": peak, "losses": losses, "launches": launches, "flash_vs_dense": cmp,
+        }
+        if not moe:
+            # bench.py:926-928; the MoE prints none (bench.py:1124-1129: the 6N
+            # count would charge its inactive experts as work)
+            flops_per_token = 6 * n_params + 12 * cfg.num_layers * cfg.embed_dim * seq
+            result["mfu"] = (flops_per_token * batch * seq / steady / PEAK_BF16_FLOPS
+                             if cuda else None)
+            return result
+
+        # the load-balance terms of the last step, and a gradient for every
+        # expert (one more forward and backward on the batch)
+        aux = [float(a) for a in model.aux_losses]
+        n_moe = sum(cfg.is_moe_block(i) for i in range(cfg.num_layers))
+        _check(len(aux) == n_moe and all(math.isfinite(a) for a in aux) and sum(aux) > 0,
+               f"MoE aux terms {aux} ({n_moe} MoE blocks)")
+        w_gates = [b.mlp.w_gate for b in model.blocks if isinstance(b.mlp, llama.MoeMlp)]
+        loss = llama.llama_loss(model(tokens), targets) + 0.01 * sum(model.aux_losses)
+        grads = torch.autograd.grad(loss, w_gates)
+        expert_grad = [[float(g[e].abs().max()) for e in range(cfg.num_experts)] for g in grads]
+        log(f"  aux {aux}; max |grad w_gate| per MoE block and expert {expert_grad}")
+        _check(all(x > 0 and math.isfinite(x) for row in expert_grad for x in row),
+               "an expert's w_gate got no gradient")
+
+        # the staged state, restored into a model built afresh, steps as the
+        # uninterrupted run's last step did
+        del model, state, step_fn, grads, loss, w_gates
+        model, fresh, step_fn = build(1)
+        t0 = time.perf_counter()
+        step, restored = engine.load(fresh)
+        restore_s = time.perf_counter() - t0
+        restored_hash = state_hash(restored)
+        _, resumed_loss = step_fn(restored, tokens, targets)
+        resumed_loss = float(resumed_loss)
+        log(f"  staged step {staged['step']} in {staged['stage_s']:.3f} s; restored step {step} "
+            f"from {engine.restored_from} in {restore_s:.3f} s, hash equal "
+            f"{restored_hash == staged['hash']}; next loss {resumed_loss} against {losses[-1]}")
+        _check(step == staged["step"] and engine.restored_from == "memory",
+               f"restored step {step} from {engine.restored_from}")
+        _check(restored_hash == staged["hash"], "the restored MoE state differs from the staged one")
+        _check(abs(resumed_loss - losses[-1]) <= LLAMA_RESUME_TOL,
+               f"the step from the restored state gives {resumed_loss}, the run {losses[-1]}")
+        result.update(aux=aux, expert_w_gate_grad_max=expert_grad, checkpoint={
+            "step": staged["step"], "image_bytes": image, "stage_s": staged["stage_s"],
+            "restore_s": restore_s, "hash_equal": True, "resumed_loss": resumed_loss,
+            "resumed_loss_bit_equal": resumed_loss == losses[-1]})
+        return result
+    finally:
+        if engine is not None:
+            engine.close()
+
+
 # -- one GPU a rank (``chip_smoke.py --multi-gpu-world``) ------------------------
 #
 # Phase 7's ranks share the card, so their backend is gloo. On a machine
@@ -2495,6 +2746,8 @@ def smoke(job_log_dir=None) -> int:
         log(f"kernels at {ragged_shape}")
         for name, rows in kernel_phase(fa, ragged_shape, gen, timed=False)[0].items():
             ragged[name] += rows
+    log(f"kernels at {LLAMA_SHAPE}, phase 9's shape")
+    llama_checks, llama_times = kernel_phase(fa, LLAMA_SHAPE, gen, timed=True)
 
     log("main path: GPT-2 small flash train step")
     result = main_path(fa, gpt, train_step)
@@ -2553,11 +2806,21 @@ def smoke(job_log_dir=None) -> int:
         shutil.rmtree(work, ignore_errors=True)
     log("sharded input: " + json.dumps(shard_facts))
 
+    log("the Llama family: Llama-125M and its top-2 MoE variant, 10 steps each at batch 16 "
+        "x seq 1024, and the MoE state through shm into a model built afresh")
+    work = tempfile.mkdtemp(prefix="chip_smoke_llama_")
+    try:
+        llama_numbers = llama_phase(work, f"chip_smoke_llama_{os.getpid()}_{int(time.time())}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
     shape = {k: MAIN_SHAPE[k] for k in ("B", "T", "H", "D", "causal")}
     kernels = []
     for name, (nbytes, flops) in bounds(**shape).items():
         b_ms, b_by = bound_ms(nbytes, flops)
-        worst = max(checks[name] + ragged[name], key=lambda c: c[1] / c[2])
+        rows = checks[name] + ragged[name] + llama_checks[name]
+        worst = max(rows, key=lambda c: c[1] / c[2])
+        llama_bound = bound_ms(*bounds(**LLAMA_SHAPE)[name])
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
@@ -2566,13 +2829,22 @@ def smoke(job_log_dir=None) -> int:
             # from 0 in each worker process)
             "launches_two_node": two_numbers["launches"][name],
             "launches_shards": shard_numbers["launches"][name],
-            "max_abs_err": max(c[1] for c in checks[name] + ragged[name]),
+            # phase 9's launches over each variant's 10 steps
+            "launches_llama": llama_numbers["dense"]["launches"][name],
+            "launches_moe": llama_numbers["moe"]["launches"][name],
+            "max_abs_err": max(c[1] for c in rows),
             "tol": worst[2], "max_err_over_tol": worst[1] / worst[2],
             "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": times[name]["library_ms"],
             "library_call": times[name]["library_call"],
             "shape": shape,
+            # the same kernel at phase 9's shape (B*H 192)
+            "at_llama_shape": {
+                "shape": LLAMA_SHAPE, "ms": llama_times[name]["ms"],
+                "plain_ms": llama_times[name]["plain_ms"],
+                "library_ms": llama_times[name]["library_ms"], "bound_ms": llama_bound[0],
+                "bound_by": llama_bound[1], "max_abs_err": max(c[1] for c in llama_checks[name])},
             # the D=64 instance the main path runs; registers at entry (the
             # wgmma kernels' consumers raise theirs with setmaxnreg)
             **{key: binary[(name, shape["D"])][key]
@@ -2582,6 +2854,7 @@ def smoke(job_log_dir=None) -> int:
     print(json.dumps({"tpurun": tpurun_times}), flush=True)
     print(json.dumps({"two_node": two_numbers}), flush=True)
     print(json.dumps({"shards": shard_numbers}), flush=True)
+    print(json.dumps({"llama": llama_numbers}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

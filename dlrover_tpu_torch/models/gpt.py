@@ -114,21 +114,13 @@ class CausalSelfAttention(nn.Module):
 
     def forward(self, x):
         cfg = self.cfg
-        T = x.shape[1]
         qkv = torch.einsum("btd,dchk->cbthk", x, self.wqkv.to(cfg.dtype))
         q, k, v = qkv.unbind(0)
         impl = cfg.resolved_attention_impl()
         if impl == "flash":
             out = flash_attention(q, k, v, causal=True)
         elif impl == "dense":
-            # 1/sqrt(Hd) rounded as the JAX model rounds it: sqrt in fp32,
-            # then the reciprocal in the compute dtype
-            scale = torch.tensor(float(cfg.head_dim)).sqrt().to(cfg.dtype).reciprocal()
-            logits = torch.einsum("bqhk,bshk->bhqs", q, k) * scale.item()
-            mask = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
-            logits = torch.where(mask[None, None], logits, -1e9)
-            probs = torch.softmax(logits.float(), dim=-1).to(cfg.dtype)
-            out = torch.einsum("bhqs,bshk->bqhk", probs, v)
+            out = dense_attention(q, k, v, cfg.dtype)
         elif impl == "ring":
             raise NotImplementedError("attention_impl='ring' is not ported yet")
         else:
@@ -136,6 +128,21 @@ class CausalSelfAttention(nn.Module):
                 f"unknown attention_impl {impl!r}; expected dense|flash|ring"
             )
         return torch.einsum("bqhk,hkd->bqd", out, self.wo.to(cfg.dtype))
+
+
+def dense_attention(q, k, v, dtype):
+    """Causal softmax attention over ``[B, T, H, Hd]`` as the JAX models
+    write their dense branch: logits in ``dtype``, masked with -1e9, the
+    softmax in fp32 and its probabilities cast back to ``dtype``."""
+    T, Hd = q.shape[1], q.shape[-1]
+    # 1/sqrt(Hd) rounded as the JAX models round it: sqrt in fp32, then the
+    # reciprocal in the compute dtype
+    scale = torch.tensor(float(Hd)).sqrt().to(dtype).reciprocal()
+    logits = torch.einsum("bqhk,bshk->bhqs", q, k) * scale.item()
+    mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    logits = torch.where(mask[None, None], logits, -1e9)
+    probs = torch.softmax(logits.float(), dim=-1).to(dtype)
+    return torch.einsum("bhqs,bshk->bqhk", probs, v)
 
 
 class Mlp(nn.Module):

@@ -1,20 +1,24 @@
-"""Weights across the two packages: the JAX GPT's parameter tree to the
-port's state dict and back.
+"""Weights across the two packages: the JAX models' parameter trees to the
+port's state dicts and back.
 
-The JAX model (``dlrover_tpu/models/gpt.py``) names its parameters the flax
-way, ``block_{i}/CausalSelfAttention_0/wqkv`` and so on; the port uses
-PyTorch module names. The shapes are the same, so the mapping is a rename
-and the round trip is lossless. Trees are nested dicts of numpy arrays (or
-anything ``np.asarray`` takes); state dicts hold tensors.
+The JAX models (``dlrover_tpu/models/gpt.py`` and ``llama.py``) name their
+parameters the flax way, ``block_{i}/CausalSelfAttention_0/wqkv``,
+``block_{i}/MoeMlp_0/w_router`` and so on (the same with ``nn.remat`` on);
+the port uses PyTorch module names. The shapes are the same, so the mapping
+is a rename and the round trip is lossless. The family is read off the
+names (a Llama tree has ``norm_f``, a GPT tree ``ln_f``), and a Llama
+block's MLP is the MoE one when it holds a router. Trees are nested dicts
+of numpy arrays (or anything ``np.asarray`` takes); state dicts hold
+tensors.
 """
 
-from typing import Dict, Mapping
+from typing import Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
 
 # port name inside a block -> (flax submodule, flax leaf)
-_BLOCK = {
+_GPT_BLOCK = {
     "ln_1.scale": ("LayerNorm_0", "scale"),
     "ln_1.bias": ("LayerNorm_0", "bias"),
     "attn.wqkv": ("CausalSelfAttention_0", "wqkv"),
@@ -26,30 +30,63 @@ _BLOCK = {
     "mlp.w2": ("Mlp_0", "w2"),
     "mlp.b2": ("Mlp_0", "b2"),
 }
-_TOP = {
+_GPT_TOP = {
     "wte": ("wte",),
     "wpe": ("wpe",),
     "ln_f.scale": ("ln_f", "scale"),
     "ln_f.bias": ("ln_f", "bias"),
     "lm_head": ("lm_head",),
 }
+_LLAMA_BLOCK = {
+    "norm_1.scale": ("RMSNorm_0", "scale"),
+    **{f"attn.{w}": ("LlamaAttention_0", w) for w in ("wq", "wk", "wv", "wo")},
+    "norm_2.scale": ("RMSNorm_1", "scale"),
+}
+_SWIGLU = {f"mlp.{w}": ("SwiGluMlp_0", w) for w in ("w_gate", "w_up", "w_down")}
+_MOE = {f"mlp.{w}": ("MoeMlp_0", w) for w in ("w_router", "w_gate", "w_up", "w_down")}
+_LLAMA_TOP = {
+    "wte": ("wte",),
+    "norm_f.scale": ("norm_f", "scale"),
+    "lm_head": ("lm_head",),
+}
 
 
-def _flax_paths(tree: Mapping):
+def _block(llama: bool, moe: bool) -> Dict[str, Tuple[str, str]]:
+    if not llama:
+        return _GPT_BLOCK
+    return {**_LLAMA_BLOCK, **(_MOE if moe else _SWIGLU)}
+
+
+def _flax_paths(tree: Mapping) -> Iterable[Tuple[str, Tuple[str, ...]]]:
     """(port name, flax path) for every parameter the tree holds."""
-    for name, path in _TOP.items():
+    llama = "norm_f" in tree
+    for name, path in (_LLAMA_TOP if llama else _GPT_TOP).items():
         if path[0] in tree:
             yield name, path
     i = 0
     while f"block_{i}" in tree:
-        for name, path in _BLOCK.items():
+        for name, path in _block(llama, "MoeMlp_0" in tree[f"block_{i}"]).items():
             yield f"blocks.{i}.{name}", (f"block_{i}",) + path
         i += 1
 
 
+def _port_paths(names: Iterable[str]) -> Iterable[Tuple[str, Tuple[str, ...]]]:
+    """(port name, flax path) for every name of a port state dict."""
+    names = list(names)
+    llama = "norm_f.scale" in names
+    top = _LLAMA_TOP if llama else _GPT_TOP
+    for name in names:
+        if name in top:
+            yield name, top[name]
+        else:
+            _, i, rest = name.split(".", 2)
+            block = _block(llama, f"blocks.{i}.mlp.w_router" in names)
+            yield name, (f"block_{i}",) + block[rest]
+
+
 def params_from_flax(tree: Mapping, device=None) -> Dict[str, torch.Tensor]:
-    """The port's state dict for a flax GPT parameter tree. Arrays are
-    copied; ``device`` defaults to the CPU."""
+    """The port's state dict for a flax GPT or Llama parameter tree.
+    Arrays are copied; ``device`` defaults to the CPU."""
     state = {}
     for name, path in _flax_paths(tree):
         leaf = tree
@@ -63,14 +100,9 @@ def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     """The flax parameter tree (nested dicts of numpy arrays) for a port
     state dict."""
     tree: Dict = {}
-    for name, tensor in state_dict.items():
-        if name in _TOP:
-            path = _TOP[name]
-        else:
-            _, i, rest = name.split(".", 2)
-            path = (f"block_{i}",) + _BLOCK[rest]
+    for name, path in _port_paths(state_dict):
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = tensor.detach().cpu().numpy()
+        node[path[-1]] = state_dict[name].detach().cpu().numpy()
     return tree

@@ -189,8 +189,12 @@ def build_train_step(
     step, so this matches the full-batch step only when each slice's loss
     mean covers the same number of tokens.
 
-    ``aux_loss_weight`` scales auxiliary losses (MoE load balance) in the
-    JAX step; no model of the port has any yet, so it has no effect.
+    ``aux_loss_weight`` scales the model's auxiliary losses, as the JAX
+    step scales the ``("losses", ...)`` terms a model sows: a model with an
+    ``aux_losses`` list (``models/llama.py``'s MoE load balance, one scalar
+    a MoE block, set by each forward) has ``aux_loss_weight`` times their
+    sum added to each micro-batch's loss, which the step differentiates and
+    returns. 0, or a model without such terms, leaves the loss as it is.
 
     The step takes an optional ``mark``, called with ``"forward"``,
     ``"backward"`` and ``"optimizer"`` as each part has been queued (for
@@ -207,7 +211,6 @@ def build_train_step(
     global mean loss and applies the same update. Without a mesh, or on a
     world of one, the step is the single-device one.
     """
-    del aux_loss_weight
     accum = max(1, int(grad_accum_steps))
     dp = mesh.dp if mesh is not None and mesh.group is not None else 1
     # Fused-CE contract (models/gpt.py): a model with ce_chunk > 0 computes
@@ -218,6 +221,9 @@ def build_train_step(
     def grads_of(params, inputs, targets, mark):
         out = model(inputs, targets=targets) if fused_ce else model(inputs)
         loss = loss_fn(out, targets)
+        aux = getattr(model, "aux_losses", ())
+        if aux and aux_loss_weight:
+            loss = loss + aux_loss_weight * sum(a.sum() for a in aux)
         mark("forward")
         grads = torch.autograd.grad(loss, list(params.values()))
         mark("backward")

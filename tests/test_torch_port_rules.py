@@ -101,6 +101,26 @@ def test_the_scans_cover_the_control_plane_agent_and_launcher():
     assert "def tpurun_phase" in open(_SCRIPTS[0]).read()
 
 
+def test_the_scans_cover_the_llama_slice():
+    names = set(_module_names())
+    for module in ("models.llama", "models.params", "examples.llama_moe"):
+        assert f"dlrover_tpu_torch.{module}" in names
+    # phase 9 of chip_smoke.py is in the scanned script
+    assert "def llama_phase" in open(_SCRIPTS[0]).read()
+
+
+def test_the_llama_example_runs_with_jax_poisoned():
+    """The MoE example trains its 30 tiny steps on the CPU in a process
+    where JAX and the JAX package cannot be imported."""
+    code = (_POISON + "import runpy\n"
+            "sys.argv = ['llama_moe', '--device', 'cpu']\n"
+            "runpy.run_module('dlrover_tpu_torch.examples.llama_moe', run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, capture_output=True,
+                          text=True, timeout=300, env={**os.environ, "PYTHONPATH": _REPO})
+    assert proc.returncode == 0, proc.stderr
+    assert "step 25: loss" in proc.stdout
+
+
 def test_every_module_imports_with_jax_and_dlrover_tpu_poisoned():
     code = (
         _POISON + "import importlib\n"
@@ -185,6 +205,7 @@ def test_the_warm_spare_preloads_and_hands_off_with_jax_grpc_and_msgpack_poisone
         ("common/platform.py", "dlrover_tpu/common/platform.py"),
         ("ops/flash_attention.py", "dlrover_tpu/ops/flash_attention.py"),
         ("models/gpt.py", "dlrover_tpu/models/gpt.py"),
+        ("models/llama.py", "dlrover_tpu/models/llama.py"),
         ("parallel/train_step.py", "dlrover_tpu/parallel/train_step.py"),
         ("parallel/mesh.py", "dlrover_tpu/parallel/mesh.py"),
     ] + [
@@ -193,7 +214,8 @@ def test_the_warm_spare_preloads_and_hands_off_with_jax_grpc_and_msgpack_poisone
                   "checkpoint/meta", "checkpoint/shm_handler", "checkpoint/storage",
                   "checkpoint/saver", "checkpoint/engine", "checkpoint/checkpointer",
                   "trainer/elastic", "trainer/dataloader", "trainer/loop") + _CONTROL_PLANE
-    ] + [("examples/gpt_elastic.py", "examples/gpt_elastic.py")],
+    ] + [("examples/gpt_elastic.py", "examples/gpt_elastic.py"),
+         ("examples/llama_moe.py", "examples/llama_moe.py")],
 )
 def test_each_ported_module_names_its_counterpart(module, counterpart):
     path = os.path.join(_PORT, module)
