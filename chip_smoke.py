@@ -83,7 +83,8 @@ and prints no result):
    --nproc_per_node 1 -m dlrover_tpu_torch.examples.gpt_elastic``, with one
    ``DLROVER_MASTER_ADDR`` and ``DLROVER_JOB_NAME``, an IPC namespace each
    and warm spares on, 30 steps of GPT-2 small at a global batch of 8 (4 a
-   rank). Both workers must report backend gloo (they share the GPU) and a
+   rank); each stage is also pushed to the peer's agent (peer replicas are
+   on by default in a world of two). Both workers must report backend gloo (they share the GPU) and a
    world of 2, and only they may hold /dev/nvidia*. Once both have staged
    step 10 or later, this process SIGKILLs rank 1's worker: node 1's agent
    must restart it after the failure and node 0's agent its own worker
@@ -128,20 +129,53 @@ and prints no result):
    load-balance term in its loss. Each variant's losses must be finite,
    the first within 0.5 of ln(vocab), each step must launch 24/12/12 flash
    kernels, and flash and dense attention must give the same token losses
-   on a 2x256 slice; the MoE's aux terms must be finite and positive and
+   on a 2x256 slice (for the MoE, before each row's first token whose
+   experts moved), and each block's attention, flash against dense on the
+   block's input from the flash forward, must agree at all 512 tokens
+   within the same limits; the MoE's aux terms must be finite and positive and
    every expert's ``w_gate`` must get a gradient; its state after step 8,
    staged to shm through ``CheckpointEngine`` and restored into a model
    built afresh, must be hash-equal and give the uninterrupted run's step-9
    loss. It reports each variant's parameter count, median step, tokens/s
-   and peak memory, and the dense model's MFU.
+   and peak memory, and the dense model's MFU;
+10. the restore chain on two nodes of one card: phase 7's job (the
+   example, a world of two over gloo, warm spares on), with peer replicas
+   (on by default in a world of several hosts) and the durable tier
+   (``DLROVER_DURABLE_DIR``, every 5th step, the newest 2 kept), every
+   step staged as in phase 7, 30 steps. (a) Once a durable generation has
+   committed, node 0's worker is stopped (SIGSTOP, counted only while its
+   shard lock is free, so that no stage is in flight) at a staged step
+   >= 10 (by step 24) that is no storage step and newer than storage's
+   newest; node 1, which stages the same steps, then stages that step and
+   waits in its next collective; node 0's worker stays stopped until
+   node 0's agent holds node 1's replica of that step; then node 1's
+   agent, worker and spare die by SIGKILL, node 0's worker continues,
+   node 1's shm segments are unlinked and a new agent of node rank 1
+   starts in a fresh IPC namespace: its worker must restore that step from node 0's memory
+   (``peer``, the refill ``refilled``, a log line naming peer 0), node 0
+   from its own shm; phase 7's checks hold (one agreed resume step,
+   losses bit-equal across the ranks and within 1e-2 of phase 5's world
+   of one, 24/12/12 launches a step, exit 0 and SUCCEEDED, nothing left
+   behind), and every durable drain must write from the saver's buffer.
+   (b) After the job, with at least two durable generations committed,
+   every shm segment of the job unlinked and the flash storage deleted,
+   the flagship command as a world of one on the same durable root and
+   lineage must restore the newest committed generation (every shard's
+   crc32 checked) and train on within 1e-2 of phase 5's losses at
+   24/12/12 launches a step. It reports each replica push's GB/s and
+   shard-lock hold, the fetch seconds, both nodes' recovery, the peak
+   ``VmRSS`` of every process and the peak bytes in ``/dev/shm``, each
+   durable drain's source, lock hold and write against phase 5's async
+   stage block, the generation's bytes and the whole-pool restore's
+   seconds.
 
 Phase 6 also times each async stage of its workers from the step to the
 image in shm (seen by the 0.1 s sampler that watches the spares), beside
 a persist of the agent or alone.
 
 The output ends with the checkpoint numbers, the ``tpurun`` timings, the
-two-node numbers, the sharded-input numbers, the Llama numbers and the
-kernel table as one JSON line each, the card's name and power limit, and ``{"ok": true,
+two-node numbers, the sharded-input numbers, the Llama numbers, the
+restore-chain numbers and the kernel table as one JSON line each, the card's name and power limit, and ``{"ok": true,
 "device": {...}}`` as the last line.
 
     python3 chip_smoke.py --multi-gpu-world
@@ -479,6 +513,62 @@ def flash_vs_dense(model, tokens, targets):
     _check(out["mean_diff"] <= 2e-2 and out["tokens_before_a_move"] > 0
            and out["max_diff_before_a_move"] <= 0.25,
            f"flash and dense attention paths disagree: {out}")
+    if isinstance(model, llama.Llama):
+        out["block_attention"] = block_attention_flash_vs_dense(model, dense, small_in)
+    return out
+
+
+def block_attention_flash_vs_dense(model, dense, tokens):
+    """Each block's attention, flash against dense, on that block's input
+    as the flash model's forward of ``tokens`` gives it: every token of the
+    slice is compared, since no routing lies between a block's input and
+    its attention. What is compared is the attention itself, softmax(QK^T)V
+    before the output projection: the kernel's output and the plain dense
+    path's on the same q, k and v (the two blocks share their weights),
+    held to the main path's limits, mean 2e-2 and max 0.25, over every
+    element of every block."""
+    import torch
+
+    from dlrover_tpu_torch.models import llama
+
+    inputs, outs = [], {"flash": [], "dense": []}
+    hooks = [b.register_forward_pre_hook(lambda mod, args: inputs.append(args[0]))
+             for b in model.blocks]
+    impls = {"flash": llama.flash_attention, "dense": llama.dense_attention}
+
+    def recording(name):
+        def attention(*args, **kwargs):
+            out = impls[name](*args, **kwargs)
+            outs[name].append(out)
+            return out
+        return attention
+
+    try:
+        with torch.no_grad():
+            model(tokens)
+        for h in hooks:
+            h.remove()
+        hooks = []
+        llama.flash_attention, llama.dense_attention = recording("flash"), recording("dense")
+        with torch.no_grad():
+            for x, fb, db in zip(inputs, model.blocks, dense.blocks):
+                fb.attn(fb.norm_1(x))
+                db.attn(db.norm_1(x))
+    finally:
+        for h in hooks:
+            h.remove()
+        llama.flash_attention, llama.dense_attention = impls["flash"], impls["dense"]
+    diffs = [(f.float() - d.float()).abs() for f, d in zip(outs["flash"], outs["dense"])]
+    out = {"blocks": len(diffs), "tokens": int(tokens.numel()),
+           "mean_abs_diff": max(float(d.mean()) for d in diffs),
+           "max_abs_diff": max(float(d.max()) for d in diffs),
+           "max_abs_diff_by_block": [float(d.max()) for d in diffs],
+           "max_abs_value": max(float(f.float().abs().max()) for f in outs["flash"])}
+    log(f"  flash vs dense attention of each block on its input: {json.dumps(out)}")
+    _check(len(diffs) == len(model.blocks) == len(inputs)
+           and all(f.shape[:2] == tuple(tokens.shape) for f in outs["flash"])
+           and out["mean_abs_diff"] <= 2e-2 and out["max_abs_diff"] <= 0.25,
+           f"a block's flash and dense attention disagree: {out}")
     return out
 
 
@@ -1212,9 +1302,11 @@ class _Watch:
     processes ({name: pid}), also each name's peak ``VmRSS`` and ``VmHWM``
     and the peak of their ``VmRSS`` sum. With ``shm``, a view of a shm
     image (closed by :meth:`stop`), also the wall-clock time each staged
-    step was first seen there (``landed``)."""
+    step was first seen there (``landed``). With ``shm_prefixes``, also the
+    peak of the bytes that the segments of ``/dev/shm`` whose names start
+    with one of them hold (``shm_peak_bytes``)."""
 
-    def __init__(self, agent_pid, spare_pidfile, job=None, shm=None):
+    def __init__(self, agent_pid, spare_pidfile, job=None, shm=None, shm_prefixes=None):
         import threading
 
         self.agent_pid = agent_pid
@@ -1227,6 +1319,8 @@ class _Watch:
         self.agent_mem = []  # (wall-clock, {field: kB})
         self.job_peak_kb = {}  # name: {"VmRSS": kB, "VmHWM": kB}
         self.job_total_peak_kb = 0
+        self.shm_prefixes = shm_prefixes
+        self.shm_peak_bytes = 0
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
@@ -1315,6 +1409,15 @@ class _Watch:
         meta = self.shm.read_meta() if self.shm is not None else None
         if meta is not None:
             self.landed.setdefault(meta.step, now)
+        if self.shm_prefixes:
+            held = 0
+            for name in os.listdir("/dev/shm"):
+                if name.startswith(tuple(self.shm_prefixes)):
+                    try:
+                        held += os.stat(os.path.join("/dev/shm", name)).st_blocks * 512
+                    except OSError:
+                        continue
+            self.shm_peak_bytes = max(self.shm_peak_bytes, held)
 
     def _run(self):
         while not self._stop.wait(0.1):
@@ -1400,21 +1503,55 @@ def _median(values):
     return statistics.median(values) if values else None
 
 
-def _shm_view(namespace, host_rank):
+def _shm_view(namespace, host_rank, name=""):
     """This process's view of ``host_rank``'s shm image in the IPC
-    ``namespace`` (the handler takes its segment's name from the
-    environment, which is restored)."""
+    ``namespace``, or of the segment ``name`` there (the handler takes its
+    segment's name from the environment, which is restored)."""
     from dlrover_tpu_torch.checkpoint.shm_handler import SharedMemoryHandler
 
     saved = os.environ.get("DLROVER_IPC_NAMESPACE")
     os.environ["DLROVER_IPC_NAMESPACE"] = namespace
     try:
-        return SharedMemoryHandler(host_rank)
+        return SharedMemoryHandler(host_rank, name=name)
     finally:
         if saved is None:
             os.environ.pop("DLROVER_IPC_NAMESPACE", None)
         else:
             os.environ["DLROVER_IPC_NAMESPACE"] = saved
+
+
+def _lock_client(namespace, sockets, host_rank):
+    """A socket client of ``host_rank``'s shard lock in the IPC
+    ``namespace`` whose sockets are in ``sockets`` (its path is fixed when
+    it is made; the environment and the module's directory are restored)."""
+    from dlrover_tpu_torch.checkpoint.saver import lock_name
+    from dlrover_tpu_torch.common import multi_process
+
+    saved = os.environ.get("DLROVER_IPC_NAMESPACE"), multi_process.SOCKET_TMP_DIR
+    os.environ["DLROVER_IPC_NAMESPACE"] = namespace
+    multi_process.SOCKET_TMP_DIR = sockets
+    try:
+        return multi_process.LocalSocketClient("lock_" + lock_name(host_rank))
+    finally:
+        if saved[0] is None:
+            os.environ.pop("DLROVER_IPC_NAMESPACE", None)
+        else:
+            os.environ["DLROVER_IPC_NAMESPACE"] = saved[0]
+        multi_process.SOCKET_TMP_DIR = saved[1]
+
+
+def _wait_stopped(pid, timeout=2.0):
+    """Until ``pid`` is stopped (state T), at most ``timeout``: a SIGSTOP
+    is delivered after ``kill`` returns."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] in ("T", "t"):
+                    return
+        except (OSError, IndexError):
+            return
+        time.sleep(0.005)
 
 
 def _job_tail(outs, n):
@@ -1801,31 +1938,54 @@ EXAMPLE = ["-m", "dlrover_tpu_torch.examples.gpt_elastic"]
 
 
 def _two_node_job(work, job, entry, device, small, total_steps, kill_after, timeout, job_log,
-                  after_resume=None):
+                  after_resume=None, replace_node=False, env=None, kill_gate=None, kill_by=None):
     """The master and two agents running ``entry`` (a trainer that prints
     the example's records) as two nodes, a SIGKILL of rank 1's worker once
-    both nodes staged step ``kill_after``, the recovery of both and the end
-    of the job. ``after_resume(addr)``, when given, runs once both
-    restarted workers have taken a step; its value is returned.
-    Raises on the first failed check of what phases 7 and 8 share: exit
-    codes and SUCCEEDED, gloo and a world of 2, one restart a node, one
-    agreed resume step from one rung, 24/12/12 flash launches a step on the
-    card, losses finite and bit-equal across the ranks, the steps each
-    worker ran, equal final state hashes, only workers on the GPU, nothing
-    left behind. Returns the job's records and facts."""
+    both nodes staged step ``kill_after`` (stopped first by SIGSTOP, and
+    killed only once it has printed the record of every step it staged),
+    the recovery of both and the end of the job. ``after_resume(addr)``, when given, runs once both
+    restarted workers have taken a step; its value is returned. ``env``
+    adds to every process's environment.
+
+    With ``replace_node`` the kill takes node 1 whole (phase 10): once both
+    nodes have staged one step S >= ``kill_after`` that is no storage step
+    and newer than the newest committed one, node 0's worker is stopped
+    (SIGSTOP; node 1's then waits in its next all-reduce) until node 0's
+    agent holds node 1's replica of S; then node 1's agent, worker and
+    spare die by SIGKILL, node 0's worker continues, node 1's shm segments are
+    unlinked and a new agent of node rank 1 starts in a fresh IPC namespace,
+    whose worker must restore S from node 0's memory (``peer``, the refill
+    ``refilled``). ``kill_gate()``, when given, must also be true for a
+    step to be S, and node 1 must not have trained past ``kill_by`` without
+    one.
+
+    Raises on the first failed check of what phases 7, 8 and 10 share: exit
+    codes and SUCCEEDED, gloo and a world of 2, one restart a node (one new
+    node), one agreed resume step from one rung, 24/12/12 flash launches a
+    step on the card, losses finite and bit-equal across the ranks, the
+    steps each worker ran, equal final state hashes, only workers on the
+    GPU, nothing left behind. Returns the job's records and facts."""
     import signal
 
     from dlrover_tpu_torch.agent.worker import read_pidfile, spare_pidfile
+    from dlrover_tpu_torch.checkpoint.storage import PosixCheckpointStorage
 
     namespaces = [f"{job}_n{r}" for r in (0, 1)]
-    base = dict(os.environ, DLROVER_JOB_NAME=job, CKPT_DIR=os.path.join(work, "ckpt"),
-                TOTAL_STEPS=str(total_steps), DLROVER_IPC_DIR=os.path.join(work, "sockets"))
+    ckpt_dir = os.path.join(work, "ckpt")
+    sockets = os.path.join(work, "sockets")
+    base = dict(os.environ, DLROVER_JOB_NAME=job, CKPT_DIR=ckpt_dir,
+                TOTAL_STEPS=str(total_steps), DLROVER_IPC_DIR=sockets)
     for name in ("DLROVER_MASTER_ADDR", "DLROVER_IPC_NAMESPACE", "DLROVER_NODE_ID",
                  "DLROVER_NODE_RANK"):
         base.pop(name, None)
+    base.update(env or {})
     extra = ["--device", "cpu", "--small"] if small else []
     cwd = os.path.dirname(os.path.abspath(__file__))
     shms = [_shm_view(ns, r) for r, ns in enumerate(namespaces)]
+    # node 0's agent holds node 1's replica in a segment of its own
+    replica = _shm_view(namespaces[0], 1, name="ckpt_replica_1") if replace_node else None
+    # a client of node 0's shard lock, to see whether a stage holds it
+    lock0 = _lock_client(namespaces[0], sockets, 0) if replace_node else None
     port_file = os.path.join(work, "master.port")
     deadline = time.monotonic() + timeout
     t_launch = time.time()
@@ -1835,15 +1995,19 @@ def _two_node_job(work, job, entry, device, small, total_steps, kill_after, time
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=base,
         start_new_session=True, cwd=cwd)
     mout = _JobOutput(master)
+    # the agents, their outputs and watches: node 0, node 1 and, with
+    # replace_node, the new node 1 (index 2)
     agents, outs, watches = [], [], []
     pids = {"master": master.pid}
     owners, at_kill = [], {}
-    killed = after = None
+    killed = after = frozen = None
+    killed_spares = set()
+    node_out = [0, 1]  # index of each node's live agent in agents/outs
 
     def workers():
         found = {}
-        for r, ns in enumerate(namespaces):
-            rec = read_pidfile(ns)
+        for r, i in enumerate(node_out):
+            rec = read_pidfile(namespaces[i])
             if rec is not None:
                 found[f"worker_n{r}"] = rec[0]
         return found
@@ -1851,46 +2015,54 @@ def _two_node_job(work, job, entry, device, small, total_steps, kill_after, time
     def job_pids():
         """{role: pid} of the job's processes now; a spare adopted as a
         worker counts as the worker from then on."""
-        found = {f"agent_n{r}": a.pid for r, a in enumerate(agents)}
+        found = {f"agent_n{i}": a.pid for i, a in enumerate(agents)}
         found.update(master=master.pid, **workers())
         taken = set(found.values())
         found.update({f"spare_{p}": p for w in watches for p in list(w.spares) if p not in taken})
         return found
 
     def dump():
-        return _job_tail([("master", mout)] + [(f"agent {r}", o) for r, o in enumerate(outs)], 25)
+        return _job_tail([("master", mout)] + [(f"agent {i}", o) for i, o in enumerate(outs)], 25)
 
     def wait_for(what, cond, poll=0.05):
-        return _wait_for(what, cond, [master] + agents, deadline, dump, poll)
+        live = [a for i, a in enumerate(agents) if i in node_out]
+        return _wait_for(what, cond, [master] + live, deadline, dump, poll)
 
     def gpu_owners(boots_now):
-        return _gpu_owners(device, {**{f"agent_n{r}": a.pid for r, a in enumerate(agents)},
+        return _gpu_owners(device, {**{f"agent_n{i}": a.pid for i, a in enumerate(agents)},
                                     "master": master.pid,
                                     **{f"worker_n{r}": boots_now[r]["pid"] for r in (0, 1)}})
 
-    def boots(r, restart=None):
-        return [b for b in outs[r].events("boot") if restart in (None, b["restart_count"])]
+    def boots(i, restart=None):
+        return [b for b in outs[i].events("boot") if restart in (None, b["restart_count"])]
 
-    def steps_of(r, pid):
-        return outs[r].events("step", pid)
+    def steps_of(i, pid):
+        return outs[i].events("step", pid)
+
+    def start_agent(r, ns):
+        cmd = [sys.executable] + [str(r) if a is None else a for a in TWO_NODE] + entry + extra
+        agents.append(subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=dict(base, DLROVER_MASTER_ADDR=addr, DLROVER_IPC_NAMESPACE=ns),
+            start_new_session=True, cwd=cwd))
+        outs.append(_JobOutput(agents[-1]))
+        # node 0's watch also samples the memory of the job's processes and
+        # the bytes of its shm segments
+        watches.append(_Watch(agents[-1].pid, spare_pidfile(ns), job=None if watches else job_pids,
+                              shm_prefixes=None if watches else [f"dlrover_{job}_"]))
+        pids[f"agent_n{len(agents) - 1}"] = agents[-1].pid
 
     try:
         wait_for("the master's port", lambda: os.path.exists(port_file))
         with open(port_file) as f:
             addr = f"127.0.0.1:{int(f.read())}"
         for r, ns in enumerate(namespaces):
-            cmd = [sys.executable] + [str(r) if a is None else a for a in TWO_NODE] + entry + extra
-            env = dict(base, DLROVER_MASTER_ADDR=addr, DLROVER_IPC_NAMESPACE=ns)
-            agents.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                           text=True, env=env, start_new_session=True, cwd=cwd))
-            outs.append(_JobOutput(agents[-1]))
-            # node 0's watch also samples the memory of the job's processes
-            watches.append(_Watch(agents[-1].pid, spare_pidfile(ns), job=None if r else job_pids))
-            pids[f"agent_n{r}"] = agents[-1].pid
+            start_agent(r, ns)
         first = [wait_for(f"node {r}'s first worker", lambda r=r: boots(r, 0))[0] for r in (0, 1)]
         for r in (0, 1):
             wait_for(f"node {r}'s first step", lambda r=r: steps_of(r, first[r]["pid"]))
         owners.append(gpu_owners(first))
+        storage = PosixCheckpointStorage(ckpt_dir)
 
         def both_staged():
             steps = steps_of(1, first[1]["pid"])
@@ -1898,11 +2070,83 @@ def _two_node_job(work, job, entry, device, small, total_steps, kill_after, time
             if last < kill_after:
                 return None
             metas = [shm.read_meta() for shm in shms]
-            if all(m is not None and m.step >= max(kill_after, last - 1) for m in metas):
-                return [m.step for m in metas], last
+            if any(m is None for m in metas):
+                return None
+            if replace_node:
+                _check(kill_by is None or last <= kill_by,
+                       f"no step met the kill's condition by step {kill_by}:\n{dump()}")
+                if kill_gate is not None and not kill_gate():
+                    return None
+                tracker = storage.latest_step()
+                tracker = -1 if tracker is None else tracker
+                # a memory-only stage: storage never gets this step
+                if (metas[0].step == metas[1].step >= kill_after and metas[0].step > tracker
+                        and metas[0].step % STORAGE_EVERY):
+                    return [m.step for m in metas], last, metas[0].step, tracker
+                return None
+            if all(m.step >= max(kill_after, last - 1) for m in metas):
+                return [m.step for m in metas], last, None, None
             return None
 
-        staged, last = wait_for(f"both nodes staging a step >= {kill_after}", both_staged, 0.01)
+        what = f"both nodes staging a step >= {kill_after}"
+        while True:
+            staged, last, held, tracker = wait_for(
+                what + (" newer than storage's" if replace_node else ""), both_staged, 0.01)
+            if not replace_node:
+                # node 1's worker stops before its kill; it stages a step
+                # before it prints the step's record, so a stop between the
+                # two would hide a staged step from the checks below: then
+                # it runs on to the next candidate
+                frozen = read_pidfile(namespaces[1])[0]
+                os.kill(frozen, signal.SIGSTOP)
+                time.sleep(0.2)  # what it printed reaches this process
+                meta = shms[1].read_meta()
+                if meta is not None and meta.step <= steps_of(1, first[1]["pid"])[-1]["step"]:
+                    break
+                os.kill(frozen, signal.SIGCONT)
+                frozen = None
+                continue
+            # node 0's worker stops (and node 1's with it, in its next
+            # collective) until node 1's push of the step has landed in node
+            # 0's agent. The stop counts only while node 0's shard lock is
+            # free: then no stage of node 0 is in flight, its image is the
+            # step S held, and node 1, which stages the steps node 0 stages
+            # (the stage gate is a collective), stages S and nothing after
+            # it. Else, or when S is a storage step or not newer than
+            # storage's, it runs on to the next candidate.
+            frozen = read_pidfile(namespaces[0])[0]
+            os.kill(frozen, signal.SIGSTOP)
+            _wait_stopped(frozen)
+            tracker = storage.latest_step()
+            tracker = -1 if tracker is None else tracker
+            meta = None if lock0.call("locked") else shms[0].read_meta()
+            if meta is not None and meta.step >= kill_after and meta.step > tracker \
+                    and meta.step % STORAGE_EVERY:
+                held = meta.step
+
+                def node1_step():
+                    m = shms[1].read_meta()
+                    return m.step if m is not None and m.step >= held else None
+
+                step1 = wait_for(f"node 1 staging step {held}", node1_step)
+                _check(step1 == held, f"node 1 staged step {step1} past node 0's {held}")
+                staged = [held, held]
+                break
+            os.kill(frozen, signal.SIGCONT)
+            frozen = None
+        replica_wait_s = None
+        if replace_node:
+            t_frozen = time.time()
+
+            def replica_step():
+                # the replica in node 0's segment, and node 1's agent's log
+                # line of the push (written once the PUT has returned)
+                meta = replica.read_meta()
+                return (meta is not None and meta.step == held
+                        and outs[1].grep(rf"replica push of step {held}: \d+ bytes .* ok=True"))
+
+            wait_for(f"node 0 holding node 1's replica of step {held}", replica_step)
+            replica_wait_s = time.time() - t_frozen
         killed = read_pidfile(namespaces[1])[0]
         _check(killed == first[1]["pid"], f"node 1's pidfile names {killed}, not {first[1]['pid']}")
         at_kill = {"staged": staged, "trained_rank1": last,
@@ -1911,14 +2155,48 @@ def _two_node_job(work, job, entry, device, small, total_steps, kill_after, time
                                  if any(n.startswith(f"dlrover_{ns}_") for ns in namespaces)) / 2**30,
                    "trained_rank0": (steps_of(0, first[0]["pid"]) or [{"step": -1}])[-1]["step"],
                    "ready_spares": [[s["pid"] for s in w.ready_spares()] for w in watches]}
-        t_kill = time.time()
-        os.kill(killed, signal.SIGKILL)
-        log(f"  SIGKILLed rank 1's worker pid {killed} with steps {staged} staged: {at_kill}")
-        second = [wait_for(f"node {r}'s restarted worker", lambda r=r: boots(r, 1))[0]
-                  for r in (0, 1)]
+        if replace_node:
+            victims = [agents[1].pid, killed]
+            try:
+                with open(spare_pidfile(namespaces[1])) as f:
+                    victims.append(int(f.read().split()[0]))
+            except (OSError, ValueError, IndexError):
+                pass  # no spare at the moment
+            victims += [p for p in watches[1].spares if _proc_alive(p) and p not in victims]
+            t_kill = time.time()
+            for pid in victims:
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+            killed_spares = set(victims[2:])
+            agents[1].wait(30)
+            watches[1].stop()
+            os.kill(frozen, signal.SIGCONT)
+            frozen = None
+            at_kill.update(replica_step=held, storage_step=tracker, killed=victims,
+                           replica_wait_s=replica_wait_s)
+            shms[1].close()
+            _unlink_job_segments([f"{namespaces[1]}_"])
+            namespaces.append(f"{job}_n1r")
+            t_new_agent = time.time()
+            start_agent(1, namespaces[2])
+            node_out[1] = 2
+            log(f"  SIGKILLed node 1 (agent, worker, spare: {victims}) with steps {staged} staged "
+                f"and node 1's step {held} held by node 0; a new agent for node rank 1 in "
+                f"{namespaces[2]}: {at_kill}")
+            second = [wait_for("node 0's restarted worker", lambda: boots(0, 1))[0],
+                      wait_for("the new node 1's worker", lambda: boots(2, 0))[0]]
+        else:
+            t_kill = time.time()
+            os.kill(killed, signal.SIGKILL)
+            frozen = None
+            log(f"  SIGKILLed rank 1's worker pid {killed} with steps {staged} staged: {at_kill}")
+            second = [wait_for(f"node {r}'s restarted worker", lambda r=r: boots(r, 1))[0]
+                      for r in (0, 1)]
         for r in (0, 1):
             wait_for(f"node {r}'s first step after the resume",
-                     lambda r=r: steps_of(r, second[r]["pid"]))
+                     lambda r=r: steps_of(node_out[r], second[r]["pid"]))
         owners.append(gpu_owners(second))
         if after_resume is not None:
             after = after_resume(addr)
@@ -1926,6 +2204,11 @@ def _two_node_job(work, job, entry, device, small, total_steps, kill_after, time
         master_rc = master.wait(max(1.0, deadline - time.monotonic()))
     finally:
         t_end = time.time()
+        if frozen is not None:
+            try:
+                os.kill(frozen, signal.SIGCONT)
+            except ProcessLookupError:
+                pass
         for p in agents + [master]:
             if p.poll() is None:
                 os.killpg(p.pid, signal.SIGKILL)
@@ -1934,48 +2217,65 @@ def _two_node_job(work, job, entry, device, small, total_steps, kill_after, time
             w.stop()
         spare_pids = [p for w in watches for p in w.spares]
         seen = [b["pid"] for o in outs for b in o.events("boot")]
-        for pid in seen:
+        for pid in seen + spare_pids:
             if _proc_alive(pid):
-                os.killpg(os.getpgid(pid), signal.SIGKILL)
+                try:
+                    os.killpg(os.getpgid(pid), signal.SIGKILL)
+                except (ProcessLookupError, PermissionError):
+                    pass
         for o in outs + [mout]:
             o.join()
-        for shm in shms:
+        for shm in shms + ([replica] if replica is not None else []):
             shm.close()
+        if lock0 is not None:
+            lock0.close()
+        if job_log:  # a failed job's output too
+            with open(job_log, "w") as f:
+                for name, o in [("master", mout)] + [(f"agent {i}", o) for i, o in enumerate(outs)]:
+                    f.write("".join(f"[{name}] {ln}\n" for ln in o.lines))
     leaked, segments = _reap_leftovers(list(pids.values()) + seen + spare_pids,
                                        set(seen) | set(spare_pids), namespaces)
-    if job_log:
-        with open(job_log, "w") as f:
-            for name, o in [("master", mout)] + [(f"agent {r}", o) for r, o in enumerate(outs)]:
-                f.write("".join(f"[{name}] {ln}\n" for ln in o.lines))
 
-    _check(rcs == [0, 0], f"the agents exited {rcs}:\n{dump()}")
+    live = [outs[i] for i in node_out]
+    expect_rcs = [0, -signal.SIGKILL, 0] if replace_node else [0, 0]
+    _check(rcs == expect_rcs, f"the agents exited {rcs}, not {expect_rcs}:\n{dump()}")
     _check(master_rc == 0 and mout.grep(r"job master exiting: succeeded"),
           f"the master exited {master_rc}, not with SUCCEEDED")
     all_boots = [b for o in outs for b in o.events("boot")]
-    _check(len(all_boots) == 4 and [[b["restart_count"] for b in o.events("boot")] for o in outs]
-          == [[0, 1], [0, 1]], f"worker boots {[(b['pid'], b['restart_count']) for b in all_boots]}")
+    restarts = [[b["restart_count"] for b in o.events("boot")] for o in outs]
+    _check(restarts == ([[0, 1], [0], [0]] if replace_node else [[0, 1], [0, 1]]),
+          f"worker boots {[(b['pid'], b['restart_count']) for b in all_boots]}")
     for b in all_boots:
         _check(b["backend"] == "gloo" and b["world"] == 2,
               f"worker {b['pid']} reports backend {b['backend']} and world {b['world']}")
     recs = [o.recoveries for o in outs]
-    _check([len(r) for r in recs] == [1, 1], f"recoveries {recs}")
-    rec0, rec1 = recs[0][0], recs[1][0]
-    _check(rec1["reason"] == "worker failure" and rec1["pid"] == killed
-          and rec1["signal"] == signal.SIGKILL, f"node 1's agent saw {rec1}, not the SIGKILL")
+    _check([len(r) for r in recs] == ([1, 0, 0] if replace_node else [1, 1]), f"recoveries {recs}")
+    rec0 = recs[0][0]
+    rec1 = None if replace_node else recs[1][0]
+    if not replace_node:
+        _check(rec1["reason"] == "worker failure" and rec1["pid"] == killed
+              and rec1["signal"] == signal.SIGKILL, f"node 1's agent saw {rec1}, not the SIGKILL")
     _check(rec0["pid"] == first[0]["pid"] and rec0["reason"] in ("worker failure", "membership"),
           f"node 0's agent restarted {rec0}")
-    resumes = [outs[r].events("resume", second[r]["pid"]) for r in (0, 1)]
+    resumes = [live[r].events("resume", second[r]["pid"]) for r in (0, 1)]
     _check(all(len(x) == 1 for x in resumes), f"resume records {resumes}")
     resumed = [x[0]["restored_step"] for x in resumes]
     _check(resumed[0] == resumed[1] >= 0, f"the nodes resumed at steps {resumed}")
     sources = [x[0]["restored_from"] for x in resumes]
     _check(len({"storage" if s == "storage" else "memory" for s in sources}) == 1,
           f"the nodes restored from {sources}")
+    if replace_node:
+        _check(sources[1] == "peer" and resumes[1][0].get("peer_refill") == "refilled"
+              and sources[0] in ("prefetch", "memory"),
+              f"the new node 1 restored from {sources[1]} (refill "
+              f"{resumes[1][0].get('peer_refill')}), node 0 from {sources[0]}")
+        _check(resumed[0] == held, f"the nodes resumed step {resumed[0]}, not the replicated {held}")
     steps, launches = {}, {k: 0 for k in FLASH_PER_STEP}
     bad_launches = []
     for r in (0, 1):
         for inc, boot in enumerate((first[r], second[r])):
-            steps[(inc, r)] = {x["step"]: x for x in steps_of(r, boot["pid"])}
+            steps[(inc, r)] = {x["step"]: x for x in steps_of(r if inc == 0 else node_out[r],
+                                                              boot["pid"])}
             for x in steps[(inc, r)].values():
                 for k in launches:
                     launches[k] += x["launches"][k]
@@ -1995,29 +2295,31 @@ def _two_node_job(work, job, entry, device, small, total_steps, kill_after, time
     for by_step in steps.values():
         for s, x in by_step.items():
             _check(math.isfinite(x["loss"]), f"non-finite loss at step {s}")
-    dones = [outs[r].events("done", second[r]["pid"]) for r in (0, 1)]
+    dones = [live[r].events("done", second[r]["pid"]) for r in (0, 1)]
     _check(all(len(d) == 1 for d in dones) and dones[0][0]["state_hash"] == dones[1][0]["state_hash"],
           f"final state hashes {[[d['state_hash'] for d in x] for x in dones]}")
     for seen_owners in owners:
-        held = {k: v for k, v in seen_owners.items() if v and k.startswith(("agent", "master"))}
-        _check(not held, f"an agent or the master holds the GPU: {seen_owners}")
+        held_gpu = {k: v for k, v in seen_owners.items() if v and k.startswith(("agent", "master"))}
+        _check(not held_gpu, f"an agent or the master holds the GPU: {seen_owners}")
         _check(device != "cuda" or all(v for k, v in seen_owners.items() if k.startswith("worker")),
               f"a worker holds no GPU device: {seen_owners}")
     spares = {p: r for w in watches for p, r in w.spares.items()}
-    held = {p: r["nvidia_fds"] for p, r in spares.items() if r["nvidia_fds"]}
-    _check(not held, f"a spare held /dev/nvidia* before its promotion: {held}")
+    held_fds = {p: r["nvidia_fds"] for p, r in spares.items() if r["nvidia_fds"]}
+    _check(not held_fds, f"a spare held /dev/nvidia* before its promotion: {held_fds}")
     stopped = {p: why for o in outs for p, why in _spares_stopped(o).items()}
-    unready = {p: r["samples"] for p, r in spares.items() if not r["ready"] and p not in stopped}
+    unready = {p: r["samples"] for p, r in spares.items()
+               if not r["ready"] and p not in stopped and p not in killed_spares}
     _check(not unready, f"spares neither seen ready nor stopped by the agent (samples): {unready}")
     _check(not leaked, f"processes of the job still alive: {leaked}")
     _check(not segments, f"shm segments of the job left behind: {segments}")
-    return {"outs": outs, "first": first, "second": second, "recs": (rec0, rec1),
+    return {"outs": live, "all_outs": outs, "first": first, "second": second, "recs": (rec0, rec1),
             "resumed": resumed[0], "sources": sources, "steps": steps, "launches": launches,
             "at_kill": at_kill, "t_kill": t_kill, "t_launch": t_launch, "t_end": t_end,
+            "t_new_agent": t_new_agent if replace_node else None,
             "watch": watches[0], "owners": owners, "pids": pids, "spares": sorted(spares),
             "ranks": [[b["rank"] for b in o.events("boot")] for o in outs],
             "backend": all_boots[0]["backend"], "state_hash": dones[0][0]["state_hash"],
-            "after": after}
+            "after": after, "resume_records": [x[0] for x in resumes]}
 
 
 def _two_node_numbers(j, card, small, total_steps):
@@ -2575,6 +2877,190 @@ def _llama_variant(cfg, tokens, targets, device, steps, work):
             engine.close()
 
 
+# -- phase 10: the restore chain on two nodes of one card ----------------------
+#
+# Phase 7's job with peer replicas (on by default in a world of two) and the
+# durable tier: node 1 is replaced whole and restores from node 0's memory;
+# then, with every shm segment and the flash storage gone, a world of one
+# restores the newest committed durable generation.
+
+CHAIN_STEPS = 30
+CHAIN_KILL_AFTER = 10
+# node 1 dies at a step that leaves a durable step (25) after the resume
+CHAIN_KILL_BY = 24
+# a generation that lost a host's shard (node 1 dies mid-drain) never meets
+# its barrier, and rank 0's writer waits it out before the next one: 30 s,
+# not the default 120 s, keeps that inside the phase
+CHAIN_DURABLE = {"DLROVER_DURABLE_EVERY": "5", "DLROVER_DURABLE_KEEP": "2",
+                 "DLROVER_DURABLE_COMMIT_TIMEOUT_S": "30"}
+_PUSH = r"replica push of step (\d+): (\d+) bytes in ([\d.]+) s, ok=True \(shard lock held ([\d.]+) s\)"
+_FETCH = r"recovered shard of rank (\d+) from peer (\d+) at (\S+) in ([\d.]+) s"
+_DRAIN = (r"durable shard of step (\d+) written from the (saver buffer|shm): (\d+) bytes in "
+          r"([\d.]+) s \(shard lock held ([\d.]+) s\)")
+_COMMITTED = r"durable generation committed: (\S+) gen_(\d+)"
+_DURABLE_READ = r"restored step (\d+) from durable tier \S+ \(saved world (\d+), (\d+) bytes, ([\d.]+) s\)"
+
+
+def restore_chain_phase(work, job, device="cuda", small=False, total_steps=CHAIN_STEPS,
+                        reference=None, loss_tol=TPURUN_LOSS_TOL, kill_after=CHAIN_KILL_AFTER,
+                        timeout=600, card=None, job_log=None, stage_block_s=None):
+    """Phase 10: (a) phase 7's job, every stage replicated to the peer and
+    every 5th step drained to the durable tier, where node 1 dies whole
+    (agent, worker, spare, shm) once node 0 holds its replica of a staged
+    step newer than storage's, and a new node 1 restores that step from
+    node 0's memory; (b) after the job, with every shm segment and the
+    flash storage deleted, the example as a world of one restores the
+    newest committed durable generation and trains on. ``reference`` maps
+    step (as a string) to an uninterrupted world of one's loss (run first
+    without it). Raises on the first failed check; returns the phase's
+    facts and numbers."""
+    import signal
+
+    from dlrover_tpu_torch.checkpoint.durable.layout import DurableLayout
+
+    if reference is None:
+        reference = _uninterrupted_losses(work, f"{job}_ref", device, small, total_steps,
+                                          timeout, n=1)
+    durable = os.path.join(work, "durable")
+    env = dict(CHAIN_DURABLE, DLROVER_DURABLE_DIR=durable, DLROVER_DURABLE_LINEAGE=job)
+    # the kill waits for a committed generation: a generation in flight on
+    # node 1 dies with it, and rank 0's writer waits out its barrier
+    layout = DurableLayout(durable, job)
+    j = _two_node_job(work, job, EXAMPLE, device, small, total_steps, kill_after, timeout,
+                      job_log, replace_node=True, env=env,
+                      kill_gate=lambda: layout.latest_committed() is not None,
+                      kill_by=min(CHAIN_KILL_BY, total_steps - 2))
+    diffs = {}
+    for by_step in j["steps"].values():
+        for s, x in by_step.items():
+            diffs[s] = max(diffs.get(s, 0.0), abs(x["loss"] - reference[str(s)]))
+    max_diff = max(diffs.values())
+    _check(max_diff <= loss_tol, f"losses differ from the uninterrupted run by {max_diff}")
+    storage_step = j["at_kill"]["storage_step"]
+    _check(j["resumed"] > (-1 if storage_step is None else storage_step),
+           f"resumed step {j['resumed']} is not newer than storage's {storage_step}")
+    outs, all_outs = j["outs"], j["all_outs"]
+    fetches = [(int(m.group(1)), int(m.group(2)), float(m.group(4))) for m in outs[1].grep(_FETCH)]
+    _check(any(rank == 1 and holder == 0 for rank, holder, _ in fetches),
+           f"no log line of the new node 1 names its shard's recovery from peer 0: {fetches}")
+    pushes = [{"node": i, "step": int(m.group(1)), "bytes": int(m.group(2)),
+               "push_s": float(m.group(3)), "hold_s": float(m.group(4)),
+               "gbps": int(m.group(2)) / float(m.group(3)) / 1e9 if float(m.group(3)) else None}
+              for i, o in enumerate(all_outs) for m in o.grep(_PUSH)]
+    _check(any(p["node"] == 1 and p["step"] == j["resumed"] for p in pushes),
+           f"node 1's push of step {j['resumed']} is not in its agent's log: {pushes}")
+    drains = [{"node": i, "step": int(m.group(1)), "source": m.group(2), "bytes": int(m.group(3)),
+               "write_s": float(m.group(4)), "hold_s": float(m.group(5))}
+              for i, o in enumerate(all_outs) for m in o.grep(_DRAIN)]
+    committed = sorted({int(m.group(2)) for o in all_outs for m in o.grep(_COMMITTED)
+                        if m.group(1) == job})
+    newest = layout.latest_committed()
+    _check(len(committed) >= 2 and newest == committed[-1],
+           f"durable generations committed {committed}, newest on disk {newest}")
+    _check(all(d["source"] == "saver buffer" for d in drains),
+           f"a durable drain copied out of shm: {drains}")
+    hold_bound = None if stage_block_s is None else 2 * stage_block_s + 0.025
+    _check(hold_bound is None or max(d["hold_s"] for d in drains) <= hold_bound,
+           f"a durable drain held the shard lock longer than {hold_bound} s: {drains}")
+
+    # (b) a whole-pool loss: no shm, no flash storage, a world of one
+    _unlink_job_segments([f"{job}_"])
+    shutil.rmtree(os.path.join(work, "ckpt"), ignore_errors=True)
+    pool_job = f"{job}_pool"
+    pool_env = dict(os.environ, DLROVER_JOB_NAME=pool_job, CKPT_DIR=os.path.join(work, "ckpt"),
+                    TOTAL_STEPS=str(total_steps), DLROVER_IPC_DIR=os.path.join(work, "sockets_pool"),
+                    DLROVER_DURABLE_DIR=durable, DLROVER_DURABLE_LINEAGE=job, **CHAIN_DURABLE)
+    for name in ("DLROVER_MASTER_ADDR", "DLROVER_IPC_NAMESPACE", "DLROVER_NODE_ID",
+                 "DLROVER_NODE_RANK"):
+        pool_env.pop(name, None)
+    extra = ["--device", "cpu", "--small"] if small else []
+    t_pool = time.time()
+    proc = subprocess.Popen([sys.executable] + FLAGSHIP + extra, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=pool_env,
+                            start_new_session=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+    pout = _JobOutput(proc)
+    try:
+        rc = proc.wait(timeout)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(30)
+        pout.join()
+        boots = pout.events("boot")
+        for b in boots:
+            if _proc_alive(b["pid"]):
+                os.killpg(os.getpgid(b["pid"]), signal.SIGKILL)
+    if job_log:
+        with open(job_log, "a") as f:
+            f.write("".join(f"[world of one] {ln}\n" for ln in pout.lines))
+    leaked, segments = _reap_leftovers([proc.pid] + [b["pid"] for b in boots],
+                                       {proc.pid} | {b["pid"] for b in boots}, [pool_job])
+    _check(rc == 0, f"the world of one exited {rc}:\n{_job_tail([('', pout)], 40)}")
+    (boot,) = boots
+    (resume,) = pout.events("resume", boot["pid"])
+    _check(resume["restored_from"] == "durable" and resume["restored_step"] == newest,
+           f"the world of one restored step {resume['restored_step']} from "
+           f"{resume['restored_from']}, not generation {newest} from the durable tier")
+    reads = [m for m in pout.grep(_DURABLE_READ) if int(m.group(1)) == newest]
+    _check(len(reads) == 1 and int(reads[0].group(2)) == 2,
+           f"no log line of the durable read of a world of two's gen_{newest}")
+    pool_steps = {x["step"]: x for x in pout.events("step", boot["pid"])}
+    _check(sorted(pool_steps) == list(range(newest + 1, total_steps)),
+           f"the world of one ran steps {sorted(pool_steps)}")
+    pool_diff = max(abs(x["loss"] - reference[str(s)]) for s, x in pool_steps.items())
+    _check(pool_diff <= loss_tol, f"the world of one's losses differ by {pool_diff}")
+    bad = [(s, x["launches"]) for s, x in pool_steps.items()
+           if device == "cuda" and x["launches"] != FLASH_PER_STEP]
+    _check(not bad, f"world-of-one steps with other flash launches than {FLASH_PER_STEP}: {bad}")
+    _check(not leaked and not segments, f"left behind: processes {leaked}, segments {segments}")
+
+    rec0 = j["recs"][0]
+    new_boot, new_resume = j["second"][1], j["resume_records"][1]
+    new_first = outs[1].events("step", new_boot["pid"])[0]
+    t_kill = j["t_kill"]
+    numbers = {
+        "card": card, "model": "gpt2-small" if not small else "small", "steps": total_steps,
+        "durable": CHAIN_DURABLE, "kill": j["at_kill"],
+        "resumed_step": j["resumed"], "restored_from": j["sources"],
+        "max_loss_diff": max_diff,
+        "replica_pushes": pushes,
+        "push_gbps_median": _median([p["gbps"] for p in pushes if p["gbps"]]),
+        "fetch_s": [f for _, _, f in fetches],
+        "recovery": {
+            "node0": {"reason": rec0["reason"], **_recovery_split(rec0, outs[0], j["second"][0],
+                                                                  t_kill)},
+            "node1_replaced": {
+                "new_agent_s": j["t_new_agent"] - t_kill,
+                "agent_to_worker_s": new_boot["t_start"] - j["t_new_agent"],
+                "boot_split": _boot_split(new_boot),
+                "to_restore_s": new_resume["t_loop"] - t_kill,
+                "restore_s": new_resume["restore_s"],
+                "first_step_s": new_first["t"] - new_resume["t_loop"] - new_resume["restore_s"],
+                "total_s": new_first["t"] - t_kill,
+                "first_step_split": _first_step_split(outs[1], new_boot["pid"])}},
+        "mem_gb_peak": {name: _gb(kb) for name, kb in j["watch"].job_peak_kb.items()},
+        "mem_gb_total_peak_rss": j["watch"].job_total_peak_kb / 2**20,
+        "dev_shm_gb_peak": j["watch"].shm_peak_bytes / 2**30,
+        "durable_drains": drains, "durable_committed": committed,
+        "durable_lock_hold_s_max": max(d["hold_s"] for d in drains),
+        "stage_block_s": stage_block_s,
+        "launches": j["launches"],
+        "whole_pool": {"restored_step": newest, "generation_bytes": int(reads[0].group(3)),
+                       "read_s": float(reads[0].group(4)), "restore_s": resume["restore_s"],
+                       "max_loss_diff": pool_diff, "job_s": time.time() - t_pool,
+                       "launches": {k: sum(x["launches"][k] for x in pool_steps.values())
+                                    for k in FLASH_PER_STEP}},
+        "job_s": j["t_end"] - j["t_launch"],
+    }
+    facts = {"resumed_step": j["resumed"], "restored_from": j["sources"],
+             "storage_step_at_kill": storage_step, "max_loss_diff": max_diff,
+             "pool_restored_step": newest, "pool_max_loss_diff": pool_diff,
+             "state_hash": j["state_hash"]}
+    return facts, numbers
+
+
 # -- one GPU a rank (``chip_smoke.py --multi-gpu-world``) ------------------------
 #
 # Phase 7's ranks share the card, so their backend is gloo. On a machine
@@ -2814,6 +3300,20 @@ def smoke(job_log_dir=None) -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    log("the restore chain: phase 7's job with peer replicas and the durable tier; node 1 "
+        "replaced whole restores from node 0's memory, then a world of one restores the newest "
+        "durable generation after shm and flash storage are gone")
+    work = tempfile.mkdtemp(prefix="chip_smoke_chain_")
+    try:
+        chain_facts, chain_numbers = restore_chain_phase(
+            work, f"chip_smoke_rc_{os.getpid()}_{int(time.time())}",
+            reference=facts["reference_losses"], card=card,
+            stage_block_s=numbers.get("async_block_s"),
+            job_log=job_log_dir and os.path.join(job_log_dir, "restore_chain.log"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("restore chain: " + json.dumps(chain_facts))
+
     shape = {k: MAIN_SHAPE[k] for k in ("B", "T", "H", "D", "causal")}
     kernels = []
     for name, (nbytes, flops) in bounds(**shape).items():
@@ -2832,6 +3332,10 @@ def smoke(job_log_dir=None) -> int:
             # phase 9's launches over each variant's 10 steps
             "launches_llama": llama_numbers["dense"]["launches"][name],
             "launches_moe": llama_numbers["moe"]["launches"][name],
+            # phase 10's launches over both nodes' workers, then the world of
+            # one's after the whole-pool loss
+            "launches_restore_chain": chain_numbers["launches"][name],
+            "launches_whole_pool": chain_numbers["whole_pool"]["launches"][name],
             "max_abs_err": max(c[1] for c in rows),
             "tol": worst[2], "max_err_over_tol": worst[1] / worst[2],
             "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
@@ -2855,6 +3359,7 @@ def smoke(job_log_dir=None) -> int:
     print(json.dumps({"two_node": two_numbers}), flush=True)
     print(json.dumps({"shards": shard_numbers}), flush=True)
     print(json.dumps({"llama": llama_numbers}), flush=True)
+    print(json.dumps({"restore_chain": chain_numbers}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

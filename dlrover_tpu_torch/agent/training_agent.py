@@ -3,8 +3,10 @@
 
 The agent reaps a dead predecessor's worker, starts the checkpoint saver
 (the worker's engine stages to shared memory, the saver in this process
-persists it), joins the rendezvous and starts the worker with the world's
-env contract, then supervises it:
+persists it, and in a world of several hosts serves the peer's replica and
+pushes this host's), joins the rendezvous (with the saver refilling an
+empty shm from the peer meanwhile, as the JAX agent does) and starts the
+worker with the world's env contract, then supervises it:
 
 - a failed worker: the staged step is persisted at once (the breakpoint
   save, ``save_shm_to_storage``), the failure is diagnosed and reported,
@@ -13,9 +15,11 @@ env contract, then supervises it:
 - waiters at the master (a membership change): the worker is restarted
   into the new world;
 - master actions delivered on heartbeats: restart, relaunch, abort;
-- a succeeded worker: the agent reports success, passes the bounded exit
+- a succeeded worker: the agent lets the saver's durable writer drain
+  (bounded; the JAX agent does not wait, and its last generation's commit
+  barrier can outlive the master), reports success, passes the bounded exit
   barrier, persists the last staged step and releases the job's shared
-  memory.
+  memory, the replicas it holds for peers included.
 
 The agent keeps one warm spare (``warm_spare``, on by default as in the
 JAX package): a pre-imported interpreter spawned when the agent starts and
@@ -164,6 +168,7 @@ class ElasticTrainingAgent:
                 if saver.save_shm_to_storage():
                     logger.info("final staged step persisted")
                 saver.shm.unlink()
+                saver.release_replicas()
             else:
                 SharedMemoryHandler(self._world.rank if self._world else 0).unlink()
         except Exception as e:  # noqa: BLE001 — the job has ended either way
@@ -174,6 +179,9 @@ class ElasticTrainingAgent:
     def _initialize_workers(self) -> None:
         """Rendezvous (the handler retries until its deadline), then start
         the worker with the world's env."""
+        # the saver refills an empty shm from the peer's replica while the
+        # rendezvous polls, so the worker's restore finds it staged
+        AsyncCheckpointSaver.prefetch_restore_async()
         t0 = time.time()
         self._world = self._rdzv_handler.next_rendezvous()
         self._last_rdzv_s = time.time() - t0
@@ -224,6 +232,7 @@ class ElasticTrainingAgent:
                 continue
             result = self._worker.poll()
             if result.state == WorkerState.SUCCEEDED:
+                self._drain_durable()
                 self._report_status(NodeStatus.SUCCEEDED)
                 self._exit_barrier()
                 return AGENT_EXIT_OK
@@ -380,6 +389,15 @@ class ElasticTrainingAgent:
                                             restart_count=self._restart_count)
         except Exception as e:  # noqa: BLE001
             logger.warning("status report failed: %s", e)
+
+    def _drain_durable(self, timeout: float = 300.0) -> None:
+        """Before the success report: let the saver's durable writer drain
+        the steps the worker persisted, so the last generation's commit
+        barrier (a counter at the master) runs while the master is up; the
+        master ends the job once every node reports success."""
+        saver = AsyncCheckpointSaver._instance
+        if saver is not None and not saver.wait_durable(timeout):
+            logger.warning("durable writer still draining after %.0f s", timeout)
 
     def _exit_barrier(self, timeout: float = 300.0) -> None:
         """Every agent of the world waits here, at most ``timeout``, so the

@@ -4,7 +4,8 @@
 ``save_to_memory`` stages the state into host shared memory (blocking, or
 asynchronously behind a device-side snapshot), ``save_to_storage`` hands
 persistence to the agent's saver, and ``load``/``load_consistent`` restore
-from memory first, then storage.
+down the JAX engine's chain: this host's memory, a peer's replica of it,
+flash storage, the durable tier.
 
 Two things differ from the JAX engine because torch state is mutable:
 
@@ -35,9 +36,15 @@ does, on host metadata gathered as CPU int64 tensors through a gloo group
   tracker and newest committed steps before any restore, and all restore
   the same step from the same source.
 
-Peer replicas, the durable tier and ``load_resharded`` are not ported yet
-and raise when asked for. So ``replicate`` defaults to False; the JAX
-engine turns replication on by default for ``num_hosts > 1``.
+As in JAX, ``replicate=None`` means ``num_hosts > 1``: after every stage
+the engine asks the agent's saver to push the image to the backup peer
+(``checkpoint/replica.py``), and a host whose shm is empty (a replaced
+node) refills it from that peer before the agreement, a transfer over the
+control network with no collective. When no host has a memory image or a
+common storage step, the hosts agree on the newest durable generation
+every host sees (``checkpoint/durable/``). ``load_resharded`` (restore
+under another mesh without a template) needs the port's parallel layouts
+and raises ``not_ported``.
 """
 
 import os
@@ -124,20 +131,26 @@ class CheckpointEngine:
         host_rank: Optional[int] = None,
         num_hosts: Optional[int] = None,
         standalone: Optional[bool] = None,
-        replicate: bool = False,
+        replicate: Optional[bool] = None,
+        replica_peers: Optional[Dict[int, str]] = None,
         saver_timeout_s: Optional[float] = None,
         prefetch_restore: Optional[bool] = None,
         durable_dir: Optional[str] = None,
+        durable_lineage: Optional[str] = None,
+        master_client=None,
     ):
         self.checkpoint_dir = checkpoint_dir
-        if durable_dir is None:
-            durable_dir = get_context().durable_dir
-        if durable_dir:
-            raise not_ported("the durable checkpoint tier")
-        if replicate:
-            raise not_ported("peer-replica checkpointing")
+        # the durable tier: None reads the DLROVER_DURABLE_* knobs
+        ctx = get_context()
+        self.durable_dir = (ctx.durable_dir if durable_dir is None else durable_dir) or ""
+        self.durable_lineage = ((ctx.durable_lineage if durable_lineage is None else durable_lineage)
+                                or os.environ.get("DLROVER_JOB_NAME", "") or "default")
         self.host_rank = host_rank if host_rank is not None else int(os.getenv(NodeEnv.PROCESS_ID, "0"))
         self.num_hosts = num_hosts if num_hosts is not None else int(os.getenv(NodeEnv.NUM_PROCESSES, "1"))
+        self.master_client = master_client
+        # peer-memory replicas: on by default in a world of several hosts
+        self._replicate = replicate if replicate is not None else self.num_hosts > 1
+        self._replica_peers = replica_peers
         self.storage = PosixCheckpointStorage(checkpoint_dir)
         self.shm = SharedMemoryHandler(self.host_rank)
         self._latest_storage_step = -1
@@ -186,8 +199,13 @@ class CheckpointEngine:
         self._prefetch_thread: Optional[threading.Thread] = None
         self._prefetch_invalid = False
         self.prefetch_used = False  # the last restore consumed the prefetch
-        # rung of the last restore: "prefetch", "memory", "storage" or None
+        # rung of the last restore: "prefetch", "memory", "peer", "storage",
+        # "durable" or None
         self.restored_from: Optional[str] = None
+        # the peer refill of this engine: "refilled", "stale", "empty" or
+        # None (not tried), and the step the refill put in shm
+        self.peer_refill: Optional[str] = None
+        self._refilled_step: Optional[int] = None
         self.stage_failures = 0  # async stages that raised
         # saves skipped: the previous async stage still ran ("in_flight"),
         # the persister held the shard lock for its copy out of shm
@@ -207,7 +225,9 @@ class CheckpointEngine:
 
     def _factory_msg(self) -> Dict:
         return {"type": "create", "storage_root": self.checkpoint_dir,
-                "host_rank": self.host_rank, "num_hosts": self.num_hosts}
+                "host_rank": self.host_rank, "num_hosts": self.num_hosts,
+                "replicate": self._replicate, "replica_peers": self._replica_peers,
+                "durable_dir": self.durable_dir, "durable_lineage": self.durable_lineage}
 
     def _wait_lock(self, timeout: float) -> SharedLock:
         deadline = time.monotonic() + timeout
@@ -258,8 +278,17 @@ class CheckpointEngine:
             self._shard_lock.release()
 
     def _prefetch_restore_host(self) -> None:
+        """Read the staged image out of shm; with shm empty (a replaced
+        node), fetch this host's replica from its peer first. A save or a
+        close sets ``_prefetch_invalid``, which cancels a fetch not started
+        yet: a late refill would put an image older than the saved step
+        into shm."""
         try:
-            self._prefetched = self._read_staged_host(timeout=30.0)
+            got = self._read_staged_host(timeout=30.0)
+            if (got is None and not self._prefetch_invalid and self._replicate
+                    and self._refill_from_peer() and not self._prefetch_invalid):
+                got = self._read_staged_host(timeout=30.0)
+            self._prefetched = got
         except Exception as e:  # noqa: BLE001 — an optimisation only
             logger.warning("restore prefetch failed: %s", e)
 
@@ -273,9 +302,14 @@ class CheckpointEngine:
             logger.warning("prefetched image unusable (%s); re-reading", e)
             return None
         self.prefetch_used = True
-        self.restored_from = "prefetch"
-        logger.info("restored step %s from prefetched host read", meta.step)
+        self.restored_from = self._memory_rung(meta.step, "prefetch")
+        logger.info("restored step %s from prefetched host read (%s)", meta.step, self.restored_from)
         return meta.step, restored
+
+    def _memory_rung(self, step: int, rung: str) -> str:
+        """``peer`` when the image restored from shm is the one the peer
+        refill put there, else ``rung``."""
+        return "peer" if self._refilled_step == step else rung
 
     def _consume_prefetch(self):
         """The prefetch's result: None when disabled, still running, empty,
@@ -392,14 +426,28 @@ class CheckpointEngine:
                 self._async_disabled = True
                 self._snap_bufs = self._snap_key = self._snap_plan = None
                 logger.error("snapshot out of memory at step %s; degrading to blocking saves", step)
+        staged = False
         try:
             self.shm.save_pytree(step, pytree, num_hosts=self.num_hosts, extra=extra,
                                  staging=self._host_buffer)
             # a blocking save that landed supersedes a stale async failure
             self._stage_error = None
+            staged = True
         finally:
-            self._shard_lock.release()
+            self._release_stage(staged and for_storage)
+        self._refilled_step = None
+        if self._replicate:
+            # the agent's saver mirrors the image to the backup peer
+            self._event_q.put({"type": CheckpointEvent.REPLICATE, "step": step})
         return True
+
+    def _release_stage(self, for_storage: bool) -> None:
+        """Release the shard lock after a stage. A stage that a SAVE will
+        persist hands the lock on to the saver: this engine's next stage
+        cannot land over the image before the saver has copied it out (or
+        the saver timeout has passed), and is skipped as
+        ``persister_busy`` meanwhile."""
+        self._shard_lock.release(hold_off_s=self._saver_timeout_s if for_storage else 0.0)
 
     def _snapshot(self, pytree: Any):
         """Queue the device-side snapshot of ``pytree``: every tensor leaf
@@ -440,6 +488,7 @@ class CheckpointEngine:
         is sticky in ``_stage_error`` until a stage succeeds or
         ``wait_staged`` consumes it; for a storage save it also leaves a
         persist-error marker so ``wait_saving`` fails fast."""
+        ok = False
         try:
             records, total, sources, values = snapshot
             staged = self._host_buffer(total)
@@ -465,6 +514,7 @@ class CheckpointEngine:
             self.shm.write_image(step, records, [(0, staged[:total])], num_hosts=self.num_hosts,
                                  extra=extra, background=True)
             self._stage_error = None
+            ok = True
         except Exception as e:  # noqa: BLE001 — recorded, surfaced by wait_staged
             self._stage_error = e
             self.stage_failures += 1
@@ -477,7 +527,14 @@ class CheckpointEngine:
                 except OSError as rec_err:
                     logger.warning("could not record persist error for step %s: %r", step, rec_err)
         finally:
-            self._shard_lock.release()
+            self._release_stage(ok and for_storage)
+        if ok:
+            self._refilled_step = None
+            if self._replicate:
+                try:
+                    self._event_q.put({"type": CheckpointEvent.REPLICATE, "step": step})
+                except (OSError, RuntimeError) as e:  # the saver is gone: no replica this step
+                    logger.warning("replicate event for step %s not queued: %r", step, e)
 
     @property
     def staging_in_flight(self) -> bool:
@@ -558,14 +615,16 @@ class CheckpointEngine:
     # -- load --------------------------------------------------------------
 
     def load(self, template: Any) -> Tuple[int, Optional[Any]]:
-        """Restore into ``template``: this host's memory first, then
-        storage. ``(step, state)``, or ``(-1, None)`` with nothing to load."""
+        """Restore into ``template``: this host's memory first, then a
+        peer's replica of it, then storage, then the durable tier.
+        ``(step, state)``, or ``(-1, None)`` with nothing to load."""
         self._drain_stage_for_read()
         result = self._restore_from_prefetch(template, self._consume_prefetch())
-        if result is None:
-            result = self._load_from_memory(template)
-        if result is None:
-            result = self._load_from_storage(template)
+        for rung in (self._load_from_memory, self._load_from_peer, self._load_from_storage,
+                     self._load_from_durable):
+            if result is not None:
+                break
+            result = rung(template)
         return result if result is not None else (-1, None)
 
     def load_resharded(self, mesh, step: Optional[int] = None):
@@ -584,9 +643,45 @@ class CheckpointEngine:
         except (KeyError, ValueError) as e:
             logger.warning("memory checkpoint unusable (%s); trying storage", e)
             return None
-        self.restored_from = "memory"
-        logger.info("restored step %s from host memory", meta.step)
+        self.restored_from = self._memory_rung(meta.step, "memory")
+        logger.info("restored step %s from host memory (%s)", meta.step, self.restored_from)
         return meta.step, restored
+
+    def _refill_from_peer(self) -> bool:
+        """Fetch this host's replica from its backup peer into shm, under
+        the shard lock: a control-plane transfer with no collective, so it
+        runs before the agreement. True when shm now holds a usable image
+        (not older than storage's newest committed step)."""
+        if not self._replicate:
+            return False
+        from .replica import ReplicaManager, default_master_client
+
+        client = self.master_client
+        if client is None and self._replica_peers is None:
+            client = default_master_client()
+            if client is None:
+                return False
+        manager = ReplicaManager(self.host_rank, self.num_hosts, master_client=client,
+                                 peers=self._replica_peers)
+        if not self._shard_lock.acquire(blocking=True, timeout=60.0):
+            manager.stop()
+            return False
+        try:
+            self.peer_refill = manager.refill_shm(self.shm, self.storage)
+            meta = self.shm.read_meta() if self.peer_refill == "refilled" else None
+            self._refilled_step = None if meta is None else meta.step
+            logger.info("peer refill of rank %s: %s%s", self.host_rank, self.peer_refill,
+                        "" if meta is None else f" (step {meta.step})")
+            return meta is not None
+        finally:
+            self._shard_lock.release()
+            manager.stop()
+
+    def _load_from_peer(self, template: Any):
+        """Refill shm from the peer, then restore through the memory path."""
+        if not self._refill_from_peer():
+            return None
+        return self._load_from_memory(template)
 
     def _load_from_storage(self, template: Any, step: Optional[int] = None):
         if step is None:
@@ -604,6 +699,36 @@ class CheckpointEngine:
         self.restored_from = "storage"
         logger.info("restored step %s from storage %s", step, self.checkpoint_dir)
         return step, restored
+
+    def _load_from_durable(self, template: Any, step: Optional[int] = None):
+        """The last rung: a committed generation of the durable tier, every
+        shard's crc32 checked before it is read. A generation saved by a
+        world of another size restores, since every leaf is whole on every
+        saved rank. A torn tier gives a fresh start, as in JAX."""
+        if not self.durable_dir:
+            return None
+        try:
+            from .durable.layout import validate_saved_spec
+            from .durable.restore import read_generation
+
+            t0 = time.monotonic()
+            got_step, manifest, arrays, _extra = read_generation(
+                self.durable_dir, self.durable_lineage, step=step, host_rank=self.host_rank)
+            if got_step is None or manifest is None:
+                return None
+            for cat, specs in manifest.category_specs.items():
+                for saved_spec in specs.values():
+                    validate_saved_spec(cat, saved_spec)
+            restored = restore_into_template(template, arrays)
+        except Exception as e:  # noqa: BLE001 — the last rung: a torn tier is a fresh start, never a crash
+            logger.warning("durable restore failed (%s); starting fresh", e)
+            return None
+        self.restored_from = "durable"
+        logger.info("restored step %s from durable tier %s/%s (saved world %s, %s bytes, %.3f s)",
+                    got_step, self.durable_dir, self.durable_lineage, manifest.num_hosts,
+                    sum(int(r["nbytes"]) for r in manifest.shards.values()),
+                    time.monotonic() - t0)
+        return got_step, restored
 
     # Floor for how many of the newest committed steps enter the agreement;
     # always above ckpt_keep_latest so pruning cannot hide a common step.
@@ -642,6 +767,9 @@ class CheckpointEngine:
             meta = pre[0]
         else:
             meta = self.shm.read_meta() if self.shm.attach() else None
+            # a replaced node's refill finishes before the gather below
+            if meta is None and self._refill_from_peer():
+                meta = self.shm.read_meta()
         mem_step = -1 if meta is None else meta.step
         latest = self.storage.latest_step()
         mem_steps, st_steps, committed_sets = self._gather_restore_meta(
@@ -665,10 +793,49 @@ class CheckpointEngine:
             logger.info("staged steps %s not uniformly restorable (trackers %s, common committed %s); "
                         "restoring step %s", mem_steps, st_steps, sorted(common), target)
         if target < 0:
-            return -1, None
+            # no memory image, peer replica or common storage step anywhere:
+            # the durable tier, agreed the same way
+            return self._load_consistent_durable(template)
         result = self._load_from_storage(template, step=target)
         if result is None:
             raise RuntimeError(f"agreed checkpoint step {target} unreadable from storage")
+        return result
+
+    def _durable_latest(self) -> int:
+        """This host's newest committed durable generation; -1 when the tier
+        is off, empty or unreadable."""
+        if not self.durable_dir:
+            return -1
+        try:
+            from .durable.layout import DurableLayout
+
+            latest = DurableLayout(self.durable_dir, self.durable_lineage).latest_committed()
+        except Exception as e:  # noqa: BLE001 — a probe: an absent tier is no error
+            logger.warning("durable tier probe failed: %r", e)
+            return -1
+        return -1 if latest is None else latest
+
+    def _load_consistent_durable(self, template: Any) -> Tuple[int, Optional[Any]]:
+        """Every process's newest committed generation, gathered first; all
+        restore the oldest of them (the newest every host sees), or all
+        start fresh when one sees none."""
+        own = self._durable_latest()
+        if _process_count() <= 1:
+            steps = [own]
+        else:
+            steps = [int(v) for v in self._all_gather_rows(np.array([own]))[:, 0]]
+        if any(s < 0 for s in steps):
+            if own >= 0:
+                logger.info("durable gen_%s visible here but not on every host (%s); starting fresh",
+                            own, steps)
+            return -1, None
+        target = min(steps)
+        result = self._load_from_durable(template, step=target)
+        if result is None:
+            if _process_count() > 1:
+                raise RuntimeError(f"agreed durable generation {target} unreadable locally; "
+                                   "restart the worker to re-rendezvous")
+            return -1, None
         return result
 
     def close(self) -> None:

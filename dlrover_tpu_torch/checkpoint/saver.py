@@ -25,11 +25,35 @@ step leaves shm before the trainer stages the step after it. An in-process
 lock covers each whole write, so the breakpoint save and the writer never
 write one step twice. The storage bytes are the JAX layout.
 
+The saver also runs the two host-level rungs of the restore chain that
+the JAX saver runs:
+
+- peer replicas (``checkpoint/replica.py``): in a world of several hosts
+  each REPLICATE event (one after every stage) goes to a bounded queue; a
+  worker thread collapses it to the newest staged image, copies that
+  image out of shm into a private buffer under the shard lock (the copy
+  only) and pushes the buffer to the backup peer with the lock released.
+  The JAX worker streams straight out of shm without the lock and pushes
+  again when the step changed under it; here no network transfer ever
+  runs under the lock, and the trainer never stages into bytes in flight.
+  The saver also serves this host's replica store, and
+  :meth:`prefetch_restore` refills an empty shm from the peer;
+- the durable tier (``checkpoint/durable/``): once a persist has written
+  this host's shard of a step that ``durable_every`` divides, the buffer
+  it wrote from is lent to the :class:`DurableWriter`, which streams it
+  to the lineage on its own thread and hands it back; a third buffer is
+  made only while both others are in use. The JAX saver submits the step
+  only when its own commit call wrote the commit marker, which with a
+  storage root shared by several hosts is only the last host to finish,
+  so the others never drain and rank 0's barrier times out; the port
+  submits on this host's shard, and the durable commit's barrier waits
+  for every host.
+
 Every wait is bounded: the runner and event loops poll their queues and
-check a stop flag, the snapshot waits for the shard lock at most
-``SNAPSHOT_LOCK_S``, and :meth:`AsyncCheckpointSaver.shutdown` gives each
-hand-off and join a deadline. Peer replication and the durable tier are
-not ported yet and raise when asked for.
+check a stop flag, the snapshots wait for the shard lock at most
+``SNAPSHOT_LOCK_S``, replica transfers have ``ckpt_replica_timeout_s``,
+and :meth:`AsyncCheckpointSaver.shutdown` gives each hand-off and join a
+deadline.
 """
 
 import os
@@ -38,14 +62,13 @@ import signal
 import threading
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Deque, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
 from ..common.config import get_context
 from ..common.log import logger
 from ..common.multi_process import LocalSocketClient, SharedLock, SharedQueue, _ipc_namespace
-from ..common.platform import not_ported
 from .meta import CheckpointMeta
 from .shm_handler import SharedMemoryHandler
 from .storage import PosixCheckpointStorage
@@ -65,8 +88,15 @@ def lock_name(host_rank: int) -> str:
     return f"ckpt_shard_{host_rank}"
 
 
+def _peer_map(peers) -> Optional[Dict[int, str]]:
+    """Static replica peers by rank: the factory message is JSON, whose
+    object keys are strings."""
+    return None if peers is None else {int(rank): addr for rank, addr in peers.items()}
+
+
 class CheckpointEvent:
     SAVE = "save"
+    REPLICATE = "replicate"
     EXIT = "exit"
 
 
@@ -84,11 +114,8 @@ class AsyncCheckpointSaver:
     _signals_installed = False
 
     def __init__(self, storage_root: str, host_rank: int = 0, num_hosts: int = 1,
-                 replicate: bool = False, durable_dir: str = ""):
-        if replicate and num_hosts > 1:
-            raise not_ported("peer-replica checkpointing")
-        if durable_dir:
-            raise not_ported("the durable checkpoint tier")
+                 replicate: bool = False, replica_peers: Optional[Dict[int, str]] = None,
+                 durable_dir: str = "", durable_lineage: str = ""):
         self.storage = PosixCheckpointStorage(storage_root)
         self.host_rank = host_rank
         self.num_hosts = num_hosts
@@ -105,10 +132,83 @@ class AsyncCheckpointSaver:
         self._pending: Optional[Tuple[CheckpointMeta, int, float]] = None
         self._writing: Optional[int] = None
         self._snap_lock = threading.Lock()  # one copy out of shm at a time
+        self._fault_lock = threading.Lock()
         self._persist_lock = threading.Lock()  # one write at a time
         self._writer: Optional[threading.Thread] = None
         # per persist: step, shard-lock hold of its snapshot, write seconds
         self.persist_stats: Deque[Dict[str, float]] = deque(maxlen=1000)
+        # buffers lent to the durable writer
+        self._lent: Set[int] = set()
+        self.master_client = None  # the replica KV and the durable barrier
+        self.replica_manager = None
+        self._replica_peers = _peer_map(replica_peers)
+        self._replicate_q: Optional[_queue.Queue] = None
+        self._replicate_thread: Optional[threading.Thread] = None
+        self._replica_buf: Optional[np.ndarray] = None
+        self._pushed: Optional[Tuple[int, float]] = None  # (step, timestamp) of the last push
+        # per push: step, bytes, shard-lock hold of its copy, push seconds, ok
+        self.replica_stats: Deque[Dict] = deque(maxlen=1000)
+        self._durable_writer = None
+        self._durable_every = 1
+        self._reconfigure_durable(durable_dir, durable_lineage)
+        if replicate and num_hosts > 1:
+            self._start_replication()
+
+    def _reconfigure_durable(self, durable_dir: str, durable_lineage: str) -> None:
+        """(Re)build the durable writer for the current config and shard
+        topology; a writer for another root, lineage or world is stopped
+        and replaced."""
+        w = self._durable_writer
+        if w is not None and (not durable_dir or w.layout.root != durable_dir
+                              or (durable_lineage and w.layout.lineage != durable_lineage)
+                              or w.host_rank != self.host_rank or w.num_hosts != self.num_hosts
+                              or w.shm is not self.shm):
+            w.stop()
+            self._durable_writer = None
+        if durable_dir and self._durable_writer is None:
+            self._setup_durable(durable_dir, durable_lineage)
+
+    def _setup_durable(self, durable_dir: str, durable_lineage: str) -> None:
+        """The durable writer, with the commit barrier in the master's KV
+        store when a master is reachable, else in the done files."""
+        from .durable.writer import DurableWriter
+        from .replica import default_master_client
+
+        ctx = get_context()
+        lineage = (durable_lineage or ctx.durable_lineage or os.environ.get("DLROVER_JOB_NAME", "")
+                   or "default")
+        client = self.master_client or default_master_client()
+        try:
+            self._durable_writer = DurableWriter(
+                durable_dir, lineage, self.host_rank, self.num_hosts, self.shm,
+                shard_lock=self._shard_lock, master_client=client, keep=ctx.durable_keep,
+                commit_timeout_s=ctx.durable_commit_timeout_s)
+            self._durable_every = max(1, ctx.durable_every)
+        except Exception:  # noqa: BLE001 — the durable tier is optional; the flash tier goes on
+            logger.exception("durable writer failed to start")
+            self._durable_writer = None
+
+    def _start_replication(self) -> None:
+        """Serve this host's replica store, register its address and start
+        the push worker."""
+        from .replica import ReplicaManager, default_master_client
+
+        client = self.master_client
+        if client is None and self._replica_peers is None:
+            client = default_master_client()
+        try:
+            self.replica_manager = ReplicaManager(self.host_rank, self.num_hosts,
+                                                  master_client=client, peers=self._replica_peers)
+            self.replica_manager.start()
+        except Exception:  # noqa: BLE001 — replication is best-effort
+            logger.exception("replica manager failed to start")
+            self.replica_manager = None
+            return
+        if self._replicate_thread is None or not self._replicate_thread.is_alive():
+            self._replicate_q = _queue.Queue(maxsize=64)
+            self._replicate_thread = threading.Thread(target=self._replicate_worker,
+                                                      name="ckpt-replicate", daemon=True)
+            self._replicate_thread.start()
 
     # -- factory / lifecycle ----------------------------------------------
 
@@ -157,7 +257,9 @@ class AsyncCheckpointSaver:
                             host_rank=msg.get("host_rank", 0),
                             num_hosts=msg.get("num_hosts", 1),
                             replicate=msg.get("replicate", False),
+                            replica_peers=msg.get("replica_peers"),
                             durable_dir=msg.get("durable_dir", ""),
+                            durable_lineage=msg.get("durable_lineage", ""),
                         )
                         saver._event_loop(event_q, stop)
                     except Exception:  # noqa: BLE001 — the agent's saver must outlive a bad message
@@ -170,17 +272,15 @@ class AsyncCheckpointSaver:
 
     @classmethod
     def get_or_create(cls, storage_root: str, host_rank: int = 0, num_hosts: int = 1,
-                      replicate: bool = False, durable_dir: str = "") -> "AsyncCheckpointSaver":
+                      replicate: bool = False, replica_peers: Optional[Dict[int, str]] = None,
+                      durable_dir: str = "", durable_lineage: str = "") -> "AsyncCheckpointSaver":
         with cls._cls_lock:
             inst = cls._instance
             if inst is None:
-                cls._instance = cls(storage_root, host_rank, num_hosts,
-                                    replicate=replicate, durable_dir=durable_dir)
+                cls._instance = cls(storage_root, host_rank, num_hosts, replicate=replicate,
+                                    replica_peers=replica_peers, durable_dir=durable_dir,
+                                    durable_lineage=durable_lineage)
                 return cls._instance
-            if replicate and num_hosts > 1:
-                raise not_ported("peer-replica checkpointing")
-            if durable_dir:
-                raise not_ported("the durable checkpoint tier")
             inst.storage = PosixCheckpointStorage(storage_root)
             if host_rank != inst.host_rank or num_hosts != inst.num_hosts:
                 # the old shm/lock/step bookkeeping belongs to the old world
@@ -193,6 +293,19 @@ class AsyncCheckpointSaver:
                     inst.shm = SharedMemoryHandler(host_rank)
                 inst.host_rank, inst.num_hosts = host_rank, num_hosts
                 inst._persisted_steps.clear()
+                inst._pushed = None
+                if inst.replica_manager is not None:
+                    inst.replica_manager.stop()
+                    inst.replica_manager = None
+            if replicate and num_hosts > 1:
+                inst._replica_peers = _peer_map(replica_peers)
+                if inst.replica_manager is None:
+                    inst._start_replication()
+            elif inst.replica_manager is not None:
+                # replication turned off: stop serving, unregister
+                inst.replica_manager.stop()
+                inst.replica_manager = None
+            inst._reconfigure_durable(durable_dir, durable_lineage)
             return inst
 
     @classmethod
@@ -276,6 +389,8 @@ class AsyncCheckpointSaver:
             etype = (event or {}).get("type")
             if etype == CheckpointEvent.EXIT:
                 return
+            if etype == CheckpointEvent.REPLICATE:
+                self._replicate_step(event.get("step", -1))
             if etype != CheckpointEvent.SAVE:
                 continue
             step, exiting = event.get("step", -1), False
@@ -290,6 +405,8 @@ class AsyncCheckpointSaver:
                 exiting = etype == CheckpointEvent.EXIT
                 if etype == CheckpointEvent.SAVE:
                     step = max(step, event.get("step", -1))
+                elif etype == CheckpointEvent.REPLICATE:
+                    self._replicate_step(event.get("step", -1))
             self._snapshot_or_record(step)
             if exiting:
                 return
@@ -305,9 +422,8 @@ class AsyncCheckpointSaver:
             return False
 
     def _buffer(self, idx: int, nbytes: int) -> np.ndarray:
-        """Buffer ``idx``, grown to ``nbytes``. A new buffer's pages are
-        touched here, so that the copy out of shm does not pay their faults
-        under the shard lock."""
+        """Buffer ``idx``, grown to ``nbytes``, its pages touched at once (a
+        page fault each, not one per copied chunk)."""
         buf = self._bufs[idx]
         if buf is None or buf.nbytes < nbytes:
             self._bufs[idx] = None  # drop the old one before the new one
@@ -318,31 +434,35 @@ class AsyncCheckpointSaver:
 
     def _free_buffer(self) -> int:
         """The buffer a snapshot fills: the pending snapshot's (latest wins),
-        else the one the writer is not reading."""
+        else one that the writer is not reading and the durable writer has
+        not borrowed (a third is added while both are in use)."""
         with self._slot:
             if self._pending is not None:
                 return self._pending[1]
-            return 1 if self._writing == 0 else 0
+            for idx in range(len(self._bufs)):
+                if idx != self._writing and idx not in self._lent:
+                    return idx
+            self._bufs.append(None)
+            return len(self._bufs) - 1
+
+    def _return_buffer(self, idx: int) -> None:
+        with self._slot:
+            self._lent.discard(idx)
 
     def _snapshot(self, step: int) -> bool:
         """Copy the staged image out of shm into a private buffer, under the
         shard lock and for no longer than the copy, and leave it for the
         writer, replacing a snapshot it has not taken yet (latest wins).
-        False when there is nothing new to write. A buffer too small for
-        the image is grown with the lock released, and the copy retried;
-        the segment's pages are faulted into this process before the lock
-        is taken (``fault_in``), so the hold is the copy alone."""
+        False when there is nothing new to write. The segment's pages are
+        read into this process and the buffer is made before the lock is
+        taken (:meth:`_prepare_copy`). No stage lands over the step a SAVE
+        asked for meanwhile: the engine's storage stage hands the lock on
+        to this saver (``release(hold_off_s=...)``), and the trainer's
+        stages are skipped until this copy has claimed it (a replica push
+        takes the lock without the claim)."""
         with self._snap_lock:
-            self._fault_in()
+            self._prepare_copy()
             got = self._copy_out(step)
-            for _ in range(2):
-                if not isinstance(got, int):
-                    break
-                self._buffer(self._free_buffer(), got)
-                self._fault_in()  # the segment may be new since the last call
-                got = self._copy_out(step)
-            if isinstance(got, int):
-                raise RuntimeError(f"the staged image kept outgrowing the buffer ({got} bytes)")
             if got is None:
                 return False
         with self._slot:
@@ -354,19 +474,45 @@ class AsyncCheckpointSaver:
             self._slot.notify_all()
         return True
 
+    def _prepare_copy(self) -> None:
+        """Outside the shard lock: read a new mapping's pages in and make
+        the buffer the next copy fills as large as the staged image (read
+        without the lock: a size hint only). A SAVE can arrive while its
+        stage still writes the image (the header reads as absent then):
+        this waits for the stage to release the lock, at most
+        ``SNAPSHOT_LOCK_S``; the lock is handed on to this saver, so no
+        other stage lands meanwhile."""
+        meta = self.shm.read_meta()
+        deadline = time.monotonic() + SNAPSHOT_LOCK_S
+        while meta is None and time.monotonic() < deadline and self._shard_lock.locked():
+            time.sleep(0.05)
+            meta = self.shm.read_meta()
+        self._fault_in()
+        if meta is None:
+            return
+        with self._slot:
+            idx = self._free_buffer()
+            # a pending snapshot's buffer is the writer's to take: not
+            # replaced here
+            pending = self._pending is not None and self._pending[1] == idx
+        if not pending:
+            self._buffer(idx, meta.total_bytes)
+
     def _fault_in(self) -> None:
+        """``shm.fault_in`` (a no-op once the mapping was read) on one
+        thread at a time: the persist and the replica push both call it."""
         t0 = time.monotonic()
-        pages = self.shm.fault_in()
+        with self._fault_lock:
+            pages = self.shm.fault_in()
         if pages:
             logger.info("read %s pages of the shm segment into the saver in %.3f s", pages,
                         time.monotonic() - t0)
 
     def _copy_out(self, step: int):
         """Under the shard lock: (meta, buffer index, lock hold) of the
-        staged image copied out; None when there is nothing to copy; or the
-        bytes a buffer must hold when the free one is too small (it is grown
-        outside the lock, to keep its page faults out of the hold)."""
-        if not self._shard_lock.acquire(timeout=SNAPSHOT_LOCK_S):
+        staged image copied out, or None when there is nothing to copy. The
+        acquire claims the lock that a storage stage handed on."""
+        if not self._shard_lock.acquire(timeout=SNAPSHOT_LOCK_S, claim=True):
             raise TimeoutError(f"shard lock not free within {SNAPSHOT_LOCK_S} s")
         try:
             t0 = time.monotonic()
@@ -380,10 +526,13 @@ class AsyncCheckpointSaver:
                 # the writer takes a pending snapshot only under this
                 # condition, so the buffer picked here is nobody else's
                 idx = self._free_buffer()
-                buf = self._bufs[idx]
-                self._pending = None  # refilled below, or regrown: latest wins
-                if buf is None or buf.nbytes < meta.total_bytes:
-                    return meta.total_bytes
+                self._pending = None  # refilled below: latest wins
+            buf = self._bufs[idx]
+            if buf is None or buf.nbytes < meta.total_bytes:
+                # the image outgrew the size read before the lock
+                logger.warning("snapshot buffer made under the shard lock (%s bytes)",
+                               meta.total_bytes)
+                buf = self._buffer(idx, meta.total_bytes)
             if step >= 0 and meta.step != step:
                 logger.warning("shm holds step %s, save event wanted %s; persisting shm step",
                                meta.step, step)
@@ -423,6 +572,13 @@ class AsyncCheckpointSaver:
             with memoryview(self._bufs[idx]) as view:
                 self.storage.write_shard(meta, lambda offset, n: view[offset : offset + n])
             self._persisted_steps[meta.step] = True
+            if self._durable_writer is not None and meta.step % self._durable_every == 0:
+                # the buffer goes to the durable writer until it has written
+                # it (see the module docstring)
+                with self._slot:
+                    self._lent.add(idx)
+                self._durable_writer.submit(
+                    meta.step, (meta, self._bufs[idx], lambda: self._return_buffer(idx)))
             committed = self.storage.commit(meta.step, self.num_hosts)
             # Clear the fail-fast marker only when this persist covers its
             # step: an older image in shm means the marked stage never
@@ -469,10 +625,152 @@ class AsyncCheckpointSaver:
         self._persist_step(meta.step)
         return True
 
+    # -- peer replicas -------------------------------------------------------
+
+    def _replicate_step(self, step: int) -> None:
+        """Hand the push to the replication worker: a transfer of the whole
+        image must not hold up the SAVE events queued behind it."""
+        if self.replica_manager is None or self._replicate_q is None:
+            return
+        try:
+            self._replicate_q.put_nowait(step)
+        except _queue.Full:
+            logger.warning("replication backlog full; dropping step %s", step)
+
+    def _replicate_worker(self) -> None:
+        while self._running:
+            try:
+                self._replicate_q.get(timeout=_POLL_S)
+            except _queue.Empty:
+                continue
+            # the backlog collapses: only the newest staged image matters
+            try:
+                while True:
+                    self._replicate_q.get_nowait()
+            except _queue.Empty:
+                pass
+            manager = self.replica_manager
+            if manager is None:
+                continue
+            try:
+                self._push_staged(manager)
+            except Exception:  # noqa: BLE001 — replication is best-effort, as in JAX
+                logger.exception("replica push failed")
+
+    def _push_staged(self, manager) -> bool:
+        """Copy the staged image out of shm (under the shard lock, the copy
+        only) into the replica buffer and push the buffer to the backup
+        peer. False when there is nothing new to push or the push failed."""
+        got = self._copy_image()
+        if got is None:
+            return False
+        meta, total, hold = got
+        t0 = time.monotonic()
+        with memoryview(self._replica_buf) as view:
+            ok = manager.replicate(total, lambda offset, n: view[offset : offset + n])
+        push_s = time.monotonic() - t0
+        if ok:
+            self._pushed = (meta.step, meta.timestamp)
+        self.replica_stats.append({"step": meta.step, "bytes": total, "hold_s": hold,
+                                   "push_s": push_s, "ok": ok})
+        logger.info("replica push of step %s: %s bytes in %.3f s, ok=%s (shard lock held %.4f s)",
+                    meta.step, total, push_s, ok, hold)
+        return ok
+
+    def _copy_image(self):
+        """Under the shard lock: (meta, image bytes, lock hold) of the staged
+        image copied into the replica buffer; None when there is no image
+        or it was pushed already. The pages are read in and the buffer made
+        before the lock, as for the persist's copy."""
+        self._fault_in()
+        size = self.shm.image_size()
+        if size and (self._replica_buf is None or self._replica_buf.nbytes < size):
+            self._replica_buf = None
+            self._replica_buf = np.empty(size, dtype=np.uint8)
+            self._replica_buf.fill(0)
+        if not self._shard_lock.acquire(timeout=SNAPSHOT_LOCK_S):
+            raise TimeoutError(f"shard lock not free within {SNAPSHOT_LOCK_S} s")
+        try:
+            t0 = time.monotonic()
+            meta = self.shm.read_meta()
+            if meta is None or (meta.step, meta.timestamp) == self._pushed:
+                return None
+            reader = self.shm.image_reader()
+            total = self.shm.image_size()
+            if reader is None:
+                return None
+            if self._replica_buf is None or self._replica_buf.nbytes < total:
+                # the image outgrew the size read before the lock
+                logger.warning("replica buffer made under the shard lock (%s bytes)", total)
+                self._replica_buf = None
+                self._replica_buf = np.empty(total, dtype=np.uint8)
+                self._replica_buf.fill(0)
+            with memoryview(self._replica_buf) as view:
+                for offset in range(0, total, SNAPSHOT_CHUNK):
+                    n = min(SNAPSHOT_CHUNK, total - offset)
+                    with reader(offset, n) as chunk:
+                        view[offset : offset + n] = chunk
+            return meta, total, time.monotonic() - t0
+        finally:
+            self._shard_lock.release()
+
+    def prefetch_restore(self) -> str:
+        """Make this host's shm restorable before its worker boots (the
+        agent calls it while its rendezvous polls): a no-op with an image
+        staged; an empty shm is refilled from the backup peer, with the
+        engine's staleness rule. ``staged``, ``refilled``, ``stale``,
+        ``empty`` or ``unavailable``."""
+        if self.shm.read_meta() is not None:
+            return "staged"
+        if self.replica_manager is None:
+            return "unavailable"
+        if not self._shard_lock.acquire(timeout=SNAPSHOT_LOCK_S):
+            return "unavailable"
+        try:
+            if self.shm.read_meta() is not None:
+                return "staged"
+            return self.replica_manager.refill_shm(self.shm, self.storage)
+        finally:
+            self._shard_lock.release()
+
+    @classmethod
+    def prefetch_restore_async(cls) -> Optional[threading.Thread]:
+        """:meth:`prefetch_restore` on a thread (the agent calls it just
+        before its rendezvous, so the peer fetch overlaps the poll). None
+        without a saver yet: a first boot has nothing to prefetch, and the
+        worker's engine refills on its own."""
+        inst = cls._instance
+        if inst is None:
+            return None
+
+        def run() -> None:
+            try:
+                logger.info("agent restore prefetch: %s", inst.prefetch_restore())
+            except Exception:  # noqa: BLE001 — an optimisation only
+                logger.exception("agent restore prefetch failed")
+
+        t = threading.Thread(target=run, name="restore-prefetch", daemon=True)
+        t.start()
+        return t
+
+    def wait_durable(self, timeout: float) -> bool:
+        """Until the durable writer has drained (and on rank 0 committed)
+        what was submitted, at most ``timeout``; True without a writer."""
+        writer = self._durable_writer
+        return writer is None or writer.wait_idle(timeout)
+
+    def release_replicas(self) -> None:
+        """At the end of a job: stop serving replicas and unlink the ones
+        held for peers (the job's final state is on storage)."""
+        manager, self.replica_manager = self.replica_manager, None
+        if manager is not None:
+            manager.stop(unlink=True)
+
     def stop(self, timeout: float = 10.0) -> None:
         """Stop the writer after the write in progress, at most ``timeout``;
         a snapshot not written yet is dropped (the breakpoint save writes
-        the staged step before an agent stops)."""
+        the staged step before an agent stops). Then the replica server and
+        the durable writer."""
         self._running = False
         with self._slot:
             self._slot.notify_all()
@@ -481,3 +779,10 @@ class AsyncCheckpointSaver:
             writer.join(timeout)
             if writer.is_alive():
                 logger.warning("checkpoint writer still running after %.0f s", timeout)
+        pusher = self._replicate_thread
+        if pusher is not None and pusher is not threading.current_thread():
+            pusher.join(timeout)
+        if self.replica_manager is not None:
+            self.replica_manager.stop()
+        if self._durable_writer is not None:
+            self._durable_writer.stop(timeout)

@@ -33,6 +33,52 @@ from .meta import (
 )
 
 
+# the unit a whole segment image is streamed in (replica pushes and fetches)
+IMAGE_CHUNK = 8 << 20
+
+
+def segment_image_size(segment: SharedMemorySegment) -> int:
+    """Bytes of the image a segment holds, ``[8B meta_len][meta JSON]
+    [payload]``; 0 when it holds none or a torn one."""
+    if not segment.attach():
+        return 0
+    try:
+        meta_len = int.from_bytes(segment.read(0, HEADER_LEN_BYTES), "little")
+        if meta_len <= 0 or meta_len > segment.size:
+            return 0
+        meta = CheckpointMeta.from_json(segment.read(HEADER_LEN_BYTES, meta_len).decode())
+    except (ValueError, TypeError, KeyError, UnicodeDecodeError) as e:
+        logger.debug("shm size probe: %r", e)
+        return 0
+    total = HEADER_LEN_BYTES + meta_len + meta.total_bytes
+    return total if total <= segment.size else 0
+
+
+def stream_into_segment(segment: SharedMemorySegment, total: int,
+                        readinto: Callable[[memoryview], int]) -> None:
+    """Overwrite ``segment`` with a ``total``-byte image that
+    ``readinto(view)`` streams straight into it (a binary stream's
+    ``readinto``: the bytes it filled, 0 at the end). The 8-byte header is
+    zeroed first and written last, so a stream that dies midway leaves a
+    segment that reads as empty, never a new meta over a torn payload.
+    Raises on a short stream (the header stays zero)."""
+    if total <= HEADER_LEN_BYTES:
+        raise ValueError(f"a segment image of {total} bytes has no meta")
+    segment.ensure(total)
+    buf = segment.buf
+    buf[:HEADER_LEN_BYTES] = b"\x00" * HEADER_LEN_BYTES
+    header = bytearray(HEADER_LEN_BYTES)
+    with memoryview(header) as hview, memoryview(buf) as view:
+        off = 0
+        while off < total:
+            dst = hview[off:] if off < HEADER_LEN_BYTES else view[off : min(total, off + IMAGE_CHUNK)]
+            n = readinto(dst)
+            if not n:
+                raise IOError(f"segment image truncated at {off}/{total}")
+            off += n
+    buf[:HEADER_LEN_BYTES] = header
+
+
 def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
@@ -288,6 +334,38 @@ class SharedMemoryHandler:
             for path, recs in by_path.items()
         }
         return meta, out
+
+    def image_size(self) -> int:
+        """Bytes of the staged image, header and meta included; 0 when
+        empty."""
+        return segment_image_size(self._segment)
+
+    def image_reader(self) -> Optional[Callable[[int, int], memoryview]]:
+        """Reader ``(offset, nbytes)`` of memoryviews over the whole image,
+        header and meta included; valid while the segment stays mapped and
+        unmodified (hold the shard lock), each view released by the caller.
+        None when there is no image."""
+        if not self.image_size():
+            return None
+        buf = self._segment.buf
+        return lambda offset, nbytes: buf[offset : offset + nbytes]
+
+    def read_image(self, offset: int, nbytes: int) -> bytes:
+        return self._segment.read(offset, nbytes)
+
+    def write_image_stream(self, total: int, readinto: Callable[[memoryview], int]) -> None:
+        """Overwrite the segment with a ``total``-byte image streamed by
+        ``readinto`` (a peer's replica), torn-write safe
+        (:func:`stream_into_segment`)."""
+        stream_into_segment(self._segment, total, readinto)
+
+    def invalidate(self) -> None:
+        """Zero the header, so the staged image reads as absent (a stale
+        replica that a breakpoint save must not persist)."""
+        if self._segment.attach():
+            buf = self._segment.buf
+            if buf is not None and len(buf) >= HEADER_LEN_BYTES:
+                buf[:HEADER_LEN_BYTES] = b"\x00" * HEADER_LEN_BYTES
 
     def close(self) -> None:
         self._segment.close()

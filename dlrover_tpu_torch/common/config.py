@@ -48,9 +48,22 @@ class Context:
     # The engine starts the host-side read of a staged image at
     # construction, so it overlaps model build and the first step.
     ckpt_prefetch_restore: bool = True
-    # Durable checkpoint tier root; empty disables it. The port has no
-    # durable tier yet, and the engine raises when one is configured.
+    # Peer-replica transfers (checkpoint/replica.py) move whole segment
+    # images, so they have their own deadline rather than rpc_deadline_s.
+    ckpt_replica_timeout_s: float = 120.0
+    # Durable checkpoint tier (checkpoint/durable/): empty root disables
+    # it. A background writer drains each flash-committed image to
+    # <durable_dir>/<durable_lineage>/gen_<N> behind a two-phase,
+    # crc32-verified commit; the restore chain reads it last.
     durable_dir: str = ""
+    # lineage the job writes under; empty: the job name
+    durable_lineage: str = ""
+    # committed generations kept per lineage (pins and leases always kept)
+    durable_keep: int = 3
+    # drain a flash-committed step whose number this divides
+    durable_every: int = 1
+    # rank 0's wait for every host's shard-done signal before the commit
+    durable_commit_timeout_s: float = 120.0
     # The train loop keeps one batch in flight on a background thread
     # (trainer/dataloader.py PrefetchIterator).
     input_prefetch: bool = True

@@ -319,7 +319,10 @@ class SharedLockServer(LocalSocketServer):
     """Lock with reentrancy (hold count) and death-of-holder release: when
     the holding client's connection drops (its process died), the lock is
     force-released, so the agent draining a checkpoint after a trainer crash
-    never deadlocks."""
+    never deadlocks. A release may hand the lock on (``hold_off_s``): the
+    releasing owner cannot take it again until another owner has taken it
+    with ``claim``, or ``hold_off_s`` has passed; acquires of other owners
+    without ``claim`` leave the hand-on standing."""
 
     UNCACHED_METHODS = frozenset({"acquire", "release", "locked"})
 
@@ -328,24 +331,38 @@ class SharedLockServer(LocalSocketServer):
         self._locked_by: Optional[str] = None
         self._holder_conn: Optional[int] = None
         self._hold_count = 0
+        self._held_off: Optional[str] = None  # the owner a release handed the lock on from
+        self._held_off_until = 0.0
         self._cond = threading.Condition()
         super().__init__("lock_" + name)
 
-    def op_acquire(self, owner: str, blocking: bool = True, timeout: float = DEFAULT_WAIT_S) -> bool:
+    def op_acquire(self, owner: str, blocking: bool = True, timeout: float = DEFAULT_WAIT_S,
+                   claim: bool = False) -> bool:
         conn_id = self._conn_local.conn_id
         deadline = time.monotonic() + _bounded_wait(timeout)
         with self._cond:
-            while self._locked_by is not None and self._locked_by != owner:
-                remaining = deadline - time.monotonic()
+            while True:
+                now = time.monotonic()
+                if self._held_off is not None and now >= self._held_off_until:
+                    self._held_off = None
+                if ((self._locked_by is None or self._locked_by == owner)
+                        and self._held_off != owner):
+                    break
+                remaining = deadline - now
                 if not blocking or remaining <= 0:
                     return False
-                self._cond.wait(timeout=min(remaining, 1.0))
+                wait = min(remaining, 1.0)
+                if self._held_off is not None:
+                    wait = min(wait, max(0.0, self._held_off_until - now))
+                self._cond.wait(timeout=wait)
+            if claim and self._held_off is not None:
+                self._held_off = None  # the owner it was handed on to has it
             self._locked_by = owner
             self._holder_conn = conn_id
             self._hold_count += 1
             return True
 
-    def op_release(self, owner: str) -> bool:
+    def op_release(self, owner: str, hold_off_s: float = 0.0) -> bool:
         with self._cond:
             if self._locked_by != owner:
                 return False
@@ -354,6 +371,9 @@ class SharedLockServer(LocalSocketServer):
                 self._locked_by = None
                 self._holder_conn = None
                 self._hold_count = 0
+                if hold_off_s > 0:
+                    self._held_off = owner
+                    self._held_off_until = time.monotonic() + _bounded_wait(hold_off_s)
                 self._cond.notify_all()
             return True
 
@@ -382,13 +402,21 @@ class SharedLock:
         self._client = LocalSocketClient("lock_" + name)
         self._owner = f"{os.getpid()}_{id(self)}"
 
-    def acquire(self, blocking: bool = True, timeout: Optional[float] = DEFAULT_WAIT_S) -> bool:
+    def acquire(self, blocking: bool = True, timeout: Optional[float] = DEFAULT_WAIT_S,
+                claim: bool = False) -> bool:
+        """Take the lock (reentrant per owner). ``claim`` also takes a
+        hand-on another owner left at its release (see :meth:`release`)."""
         timeout = _bounded_wait(timeout)
         return self._client.call("acquire", _wait_s=timeout if blocking else 0.0,
-                                 owner=self._owner, blocking=blocking, timeout=timeout)
+                                 owner=self._owner, blocking=blocking, timeout=timeout,
+                                 claim=claim)
 
-    def release(self) -> bool:
-        return self._client.call("release", owner=self._owner)
+    def release(self, hold_off_s: float = 0.0) -> bool:
+        """Release one hold. With ``hold_off_s`` the last release hands the
+        lock on: this owner's next acquire waits (or fails, non-blocking)
+        until another owner has taken it with ``claim``, at most
+        ``hold_off_s``."""
+        return self._client.call("release", owner=self._owner, hold_off_s=hold_off_s)
 
     def locked(self) -> bool:
         return self._client.call("locked")

@@ -38,7 +38,8 @@ cache, the storage tracker before the restore, the world's size, this
 process's rank and the process group's backend, and whether the process
 was an adopted warm spare, with the spare's age at the hand-off and the
 time from the contract line to this script), ``resume`` (the step and rung
-of the restore), ``first_step`` and ``second_step`` (the first two steps of
+of the restore, and the outcome of a refill from a peer's replica),
+``first_step`` and ``second_step`` (the first two steps of
 this process split into forward, backward, all-reduce in a world of
 several, optimizer and loss fetch by device synchronisations; the first
 with its stage into shm), one ``step`` per step (loss, wall-clock stamp,
@@ -203,7 +204,7 @@ def main(argv=None) -> int:
         now = time.time()
         if step == loop.start_step:
             emit("resume", restored_step=loop.start_step - 1, restored_from=engine.restored_from,
-                 restore_s=loop.last_restore_s, t_loop=t_loop)
+                 peer_refill=engine.peer_refill, restore_s=loop.last_restore_s, t_loop=t_loop)
             # the first stage: the snapshot, the pinned buffer's allocation and
             # the first copies to the host and into shm
             staged = engine.wait_staged(600)

@@ -645,6 +645,72 @@ def test_a_stage_lands_while_a_persist_writes(tmp_path):
         engine.close()
 
 
+def test_a_stage_waits_for_the_persist_to_claim_a_storage_step(tmp_path):
+    """A storage stage hands the shard lock on to the saver: while the
+    saver prepares its copy (a new mapping's pages, its buffer) outside the
+    lock, the next stage is skipped as ``persister_busy`` rather than
+    landing over the step its SAVE asked for; storage gets that step."""
+    _, _, state = _small_state()
+    engine = _engine(tmp_path)
+    saver = _saver()
+    prepared, go = threading.Event(), threading.Event()
+    real = saver._prepare_copy
+
+    def slow_prepare():
+        real()
+        prepared.set()
+        assert go.wait(30.0), "the test never let the copy go on"
+
+    saver._prepare_copy = slow_prepare
+    try:
+        assert engine.save_to_storage(4, state)
+        assert prepared.wait(30.0)
+        with torch.no_grad():
+            for p in state.params.values():
+                p.add_(1.0)
+        assert not engine.save_to_memory(5, state, block=True)
+        assert engine.skipped_stages["persister_busy"] == 1
+        assert engine.shm.read_meta().step == 4
+        go.set()
+        assert engine.wait_saving(timeout=30)
+        assert engine.storage.latest_step() == 4
+        # claimed: the next stage lands
+        assert _wait(lambda: engine.save_to_memory(5, state, block=True), timeout=10)
+        assert engine.shm.read_meta().step == 5
+    finally:
+        go.set()
+        engine.close()
+
+
+def test_a_persist_makes_its_buffer_before_it_takes_the_lock(tmp_path):
+    """The SAVE of a first async stage arrives while the stage still
+    writes a new segment: the saver waits for the image, then makes its
+    buffer with the lock free, so the hold is the copy alone."""
+    _, _, state = _small_state()
+    engine = _engine(tmp_path)
+    saver = _saver()
+    real_write, real_buffer = engine.shm.write_image, saver._buffer
+    made = []  # whether the shard lock was held as each buffer was made
+
+    def slow_write(*args, **kwargs):
+        time.sleep(0.5)
+        return real_write(*args, **kwargs)
+
+    def buffer(idx, nbytes):
+        if saver._bufs[idx] is None or saver._bufs[idx].nbytes < nbytes:
+            made.append(saver._shard_lock.locked())
+        return real_buffer(idx, nbytes)
+
+    engine.shm.write_image = slow_write
+    saver._buffer = buffer
+    try:
+        assert engine.save_to_storage(0, state, block=False)
+        assert engine.wait_saving(timeout=30)
+        assert made == [False]
+    finally:
+        engine.close()
+
+
 def test_a_breakpoint_save_racing_the_persist_writes_the_step_once(tmp_path):
     engine = _engine(tmp_path)
     saver = _saver()
@@ -864,13 +930,20 @@ def test_restore_leaves_the_template_untouched_on_a_mismatch(tmp_path):
         engine.close()
 
 
-@pytest.mark.parametrize("option", ["durable_dir", "replicate", "load_resharded"])
+@pytest.mark.parametrize("option", ["place_with_rules", "warm_start", "load_resharded"])
 def test_features_not_ported_yet_raise(tmp_path, option):
-    kwargs = {"durable_dir": {"durable_dir": str(tmp_path / "d")},
-              "replicate": {"replicate": True}}.get(option)
-    if kwargs is not None:
+    """Reshard on read under a mesh needs the port's parallel layouts: the
+    durable tier's templateless placement and warm start, and the engine's
+    templateless restore, raise until then."""
+    from dlrover_tpu_torch.checkpoint import durable
+
+    if option == "place_with_rules":
         with pytest.raises(NotImplementedError, match="not ported"):
-            _engine(tmp_path, **kwargs)
+            durable.place_with_rules(durable.GenerationManifest(), {}, mesh=None)
+        return
+    if option == "warm_start":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            durable.warm_start(str(tmp_path / "d"), "lineage", mesh=None)
         return
     engine = _engine(tmp_path)
     try:
@@ -881,8 +954,8 @@ def test_features_not_ported_yet_raise(tmp_path, option):
 
 
 def test_one_host_of_several_stages_under_its_own_rank(tmp_path):
-    """``num_hosts=2`` builds an engine (peer replicas stay off, unlike the
-    JAX engine's default there) that stages into its host rank's own
+    """``num_hosts=2`` builds an engine (peer replicas on by default, as in
+    JAX, with no peer registered here) that stages into its host rank's own
     segment, stamped with both counts, and restores from it. Agreement
     across real processes: tests/test_torch_multihost.py."""
     engine = _engine(tmp_path, num_hosts=2, host_rank=1)
@@ -961,6 +1034,29 @@ def test_ipc_frames_are_json_and_waits_are_bounded():
     with pytest.raises(TimeoutError):
         tmp.LocalSocketClient("queue_nobody", timeout=0.5).call("get")
     assert time.monotonic() - t0 < 5
+
+
+def test_a_release_hands_the_lock_on_until_another_owner_claims_it():
+    """``release(hold_off_s)``: the releasing owner cannot take the lock
+    back until another owner acquires it with ``claim`` (an acquire
+    without it leaves the hand-on standing), or ``hold_off_s`` passes."""
+    stager = tmp.SharedLock("handon", create=True)
+    saver = tmp.SharedLock("handon")
+    try:
+        assert stager.acquire(timeout=5) and stager.release(hold_off_s=30)
+        assert not stager.acquire(blocking=False)
+        assert saver.acquire(timeout=5) and saver.release()  # no claim
+        assert not stager.acquire(blocking=False)
+        assert saver.acquire(timeout=5, claim=True) and saver.release()
+        assert stager.acquire(blocking=False) and stager.release(hold_off_s=0.3)
+        t0 = time.monotonic()
+        assert stager.acquire(timeout=5)  # the hand-on expires
+        assert 0.2 < time.monotonic() - t0 < 5
+        assert stager.release()
+        assert stager.acquire(blocking=False) and stager.release()
+    finally:
+        saver.close()
+        stager.close()
 
 
 def test_shared_lock_frees_a_dead_holder(tmp_path):

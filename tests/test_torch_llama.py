@@ -407,3 +407,26 @@ def test_phase_9_on_the_cpu(tmp_path, monkeypatch):
     assert result["moe"]["checkpoint"]["resumed_loss_bit_equal"]
     assert len(result["moe"]["aux"]) == 1 and result["moe"]["aux"][0] > 0
     assert not [n for n in os.listdir("/dev/shm") if n.startswith(f"dlrover_{job}")]
+
+
+@pytest.mark.parametrize("variant", ["dense", "moe"])
+def test_each_blocks_attention_flash_against_dense_covers_every_token(variant):
+    """Phase 9's block-level check with the plain versions on the CPU: each
+    block's input, captured from the flash model's forward of a 2x32 slice,
+    through the flash and the dense attention of that block; every element
+    of every token is held to the main path's limits (mean 2e-2, max
+    0.25), and a check that fails raises."""
+    cfg = tllama.LlamaConfig(**chip_smoke.LLAMA_SMALL,
+                             **(chip_smoke.LLAMA_MOE if variant == "moe" else {}))
+    model = tllama.Llama(cfg, device="cpu", seed=0)
+    dense = tllama.Llama(dataclasses.replace(cfg, attention_impl="dense"), device="cpu")
+    dense.load_state_dict(model.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 32)))
+    out = chip_smoke.block_attention_flash_vs_dense(model, dense, tokens)
+    assert out["blocks"] == cfg.num_layers and out["tokens"] == 2 * 32
+    assert out["max_abs_diff"] <= 0.25 and out["mean_abs_diff"] <= 2e-2
+    assert out["max_abs_value"] > 0.25  # the limits are not wider than the values
+    with torch.no_grad():
+        dense.blocks[-1].attn.wv.mul_(-1.0)  # a wrong attention fails the check
+    with pytest.raises(AssertionError, match="disagree"):
+        chip_smoke.block_attention_flash_vs_dense(model, dense, tokens)

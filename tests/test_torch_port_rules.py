@@ -81,13 +81,20 @@ _CONTROL_PLANE = (
 )
 
 
+_DURABLE = ("layout", "commit", "gc", "writer", "restore")
+
+
 def test_the_scans_cover_the_checkpoint_and_loop_modules():
     names = set(_module_names())
     for module in ("common.multi_process", "common.config", "common.constants", "common.log",
                    "checkpoint.meta", "checkpoint.shm_handler", "checkpoint.storage",
                    "checkpoint.saver", "checkpoint.engine", "checkpoint.checkpointer",
-                   "trainer.elastic", "trainer.dataloader", "trainer.loop", "parallel.mesh"):
+                   "trainer.elastic", "trainer.dataloader", "trainer.loop", "parallel.mesh",
+                   "checkpoint.replica", "checkpoint.durable") + tuple(
+                       f"checkpoint.durable.{m}" for m in _DURABLE):
         assert f"dlrover_tpu_torch.{module}" in names
+    # phase 10 of chip_smoke.py is in the scanned script
+    assert "def restore_chain_phase" in open(_SCRIPTS[0]).read()
 
 
 def test_the_scans_cover_the_control_plane_agent_and_launcher():
@@ -213,7 +220,9 @@ def test_the_warm_spare_preloads_and_hands_off_with_jax_grpc_and_msgpack_poisone
         for m in ("common/log", "common/constants", "common/config", "common/multi_process",
                   "checkpoint/meta", "checkpoint/shm_handler", "checkpoint/storage",
                   "checkpoint/saver", "checkpoint/engine", "checkpoint/checkpointer",
+                  "checkpoint/replica", "checkpoint/durable/__init__",
                   "trainer/elastic", "trainer/dataloader", "trainer/loop") + _CONTROL_PLANE
+        + tuple(f"checkpoint/durable/{m}" for m in _DURABLE)
     ] + [("examples/gpt_elastic.py", "examples/gpt_elastic.py"),
          ("examples/llama_moe.py", "examples/llama_moe.py")],
 )
