@@ -262,7 +262,43 @@ and prints no result; the failing phase prints ``{"failed_phase": NAME,
    split (pp sends and receives, the pp sum of the replicated leaves'
    gradients, the data all-reduce, compute), ``load_resharded``'s read and
    place seconds, the plan, peak device memory and state bytes a rank, and
-   ``/dev/shm`` free before the phase and its peak use.
+   ``/dev/shm`` free before the phase and its peak use;
+14. decode and serving (``serve_phase``; no flash kernel runs in it:
+   decode attends over the KV cache with torch ops, as the JAX package
+   does). (a) GPT-2 small's width at 4 layers in fp32 (TF32 off): a greedy
+   decode of 8 left-padded prompts of 20-120 tokens for 32 tokens, each
+   step's logits within 1e-4 of a teacher-forced forward without a cache
+   (and of the same rows decoded alone), ``generate`` giving the same
+   tokens; then 24 prompts through ``ContinuousBatchingEngine`` (8 slots,
+   ``per_row``, overlapped), again in the ``frontier`` layout and in the
+   synchronous round, each completion that prompt's one-shot greedy decode
+   and the synchronous round identical to the overlapped one. A token that
+   differs counts as a failure only where the reference's top-2 gap
+   exceeds twice the measured logit difference (the excused tokens are
+   printed). (b) The user's command, ``python3 -m
+   dlrover_tpu_torch.launcher.serve --ckpt-dir <phase 5's storage>
+   --config <GPT-2 small> --batch-size 8 --prompt-width 128
+   --max-new-tokens 32 --temperature 0 --port 0``, as a child process: this
+   process restores the same checkpoint through the serving restore (a
+   params-only template), whose parameters must hash equal to what phase
+   5's bench trainer persisted; its bf16 decode must stay within 2**-4 of
+   the largest logit of the teacher-forced forward; then 24 concurrent
+   completions over HTTP must equal this process's engine on the same
+   weights (by the same rule), ``/v1/weights/reload`` must restore the
+   same step, a streamed completion must equal its chunks and the engine,
+   ``/healthz`` must count the requests, a bad prompt must give 400, and
+   SIGTERM must stop the server with exit 0, leaving no process and no shm
+   segment. (c) The int8 cache on the same weights, driven by the exact
+   cache's tokens: every step's logits within a cosine of 0.999 of the
+   exact cache's. (d) Llama-125M on phase 9's dense parameters after 3
+   steps: its cache ``[8, 1024, 4, 64]`` a layer (KVH-narrow), a greedy
+   decode held to its teacher-forced forward as in (b). It prints the
+   ``serving`` line: decode ms a step at 8 slots (bf16 and int8 caches,
+   and Llama's), the device's busy share of a step (CUDA events after a
+   device sleep, so the step's launches are queued before it starts,
+   against the host clock), prefill ms, cache bytes, the server's
+   tokens/s, time to first token and latency p50/p95, and the phase's
+   seconds.
 
 Every phase prints its seconds as it ends, and the output has them all on
 one line (``phase_seconds``) before the kernel line.
@@ -274,7 +310,8 @@ a persist of the agent or alone (the first worker's apart, as above).
 The output ends with the checkpoint numbers, the ``tpurun`` timings, the
 two-node numbers, the sharded-input numbers, the Llama numbers, the
 restore-chain numbers, the layouts' numbers, the Llama layouts' numbers,
-the pipeline's numbers, the phases' seconds and the kernel table as one
+the pipeline's numbers, the serving numbers, the phases' seconds and the
+kernel table as one
 JSON line each, the card's
 name and power limit, and ``{"ok": true, "device": {...}}`` as the last
 line.
@@ -1002,6 +1039,8 @@ def bench(engine, state, step_fn, batches, device):
             raise RuntimeError(f"persist of {step} failed")
         time.sleep(0.002)
     persist_s = time.perf_counter() - t1
+    # phase 14 serves this step: its parameters' hash
+    persisted = {"step": step, "params_sha256": params_sha256(state.params)}
     t0 = time.perf_counter()
     got, _ = engine.load(state)
     restore_s = time.perf_counter() - t0
@@ -1056,6 +1095,7 @@ def bench(engine, state, step_fn, batches, device):
         "loop_step_s": loop_step_s, "loop_overhead": loop_step_s / bare_step_s - 1,
         "loop_steps": len(loop_steps), "loop_saves": counts,
         "stage_failures": engine.stage_failures,
+        "persisted": persisted,
     }
 
 
@@ -4752,6 +4792,505 @@ def pipeline_world(work, job, device="cuda", small=False, gpu_per_rank=False, ti
             "split_step": next(x["split"] for x in world[0].values() if x["split"])}
 
 
+# -- phase 14: decode and serving ------------------------------------------------
+#
+# (a) the decode path in fp32 at GPT-2 small's width and 4 layers, held to a
+# teacher-forced forward without a cache, and the continuous engine held to
+# the one-shot generate; (b) the user's command, ``python3 -m
+# dlrover_tpu_torch.launcher.serve --ckpt-dir <phase 5's storage>``, answering
+# concurrent completions over HTTP at full width in bf16; (c) the int8 cache
+# against the exact one on the same weights; (d) Llama-125M's GQA cache on
+# phase 9's weights. No flash kernel runs in this phase: decode attends over
+# the cache with plain torch ops, as the JAX package does.
+
+# sizes: the card's, and the CPU twin's (small)
+SERVE = {False: dict(batch=8, width=128, new=32, prompts=24, lo=20, hi=120, chunk=8),
+         True: dict(batch=4, width=16, new=8, prompts=8, lo=3, hi=16, chunk=4)}
+SERVE_FP32_LAYERS = 4
+# fp32 decode logits against the teacher-forced forward (TF32 off): the same
+# function in another order of sums
+SERVE_FP32_TOL = 1e-4
+# bf16 logits against the teacher-forced forward, relative to the largest
+# logit: twelve layers of bf16 roundings taken at other points (the cache's
+# masked softmax over every slot against the forward's T x T)
+SERVE_BF16_REL_TOL = 2.0 ** -4
+# the int8 cache's logits against the exact cache's, each step (JAX's bound)
+SERVE_INT8_COS = 0.999
+SERVE_BOOT_S = 180
+SERVE_SEED = 14
+
+
+def _serve_config(small):
+    """The served GPT's config as ``--config`` takes it: phase 5's example
+    model (GPT-2 small at full width), or its 2-layer CPU variant."""
+    if small:
+        return dict(vocab_size=256, max_seq_len=32, num_layers=2, num_heads=4, head_dim=16,
+                    embed_dim=64, use_remat=False)
+    return dict(_gpt2_small_dims(), use_remat=False)
+
+
+def _gpt2_small_dims():
+    from dlrover_tpu_torch.models import gpt
+
+    c = gpt.GPTConfig.gpt2_small()
+    return {k: getattr(c, k) for k in ("vocab_size", "max_seq_len", "num_layers", "num_heads",
+                                       "head_dim", "embed_dim")}
+
+
+def params_sha256(named):
+    """SHA-256 over the parameters ``{name: tensor}``, by name: each name
+    and its tensor's bytes."""
+    import torch
+
+    h = hashlib.sha256()
+    for name in sorted(named):
+        h.update(name.encode())
+        t = named[name].detach().contiguous().reshape(-1)
+        h.update(t.view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _serve_prompts(n, lo, hi, vocab, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [[int(x) for x in rng.integers(1, vocab, int(rng.integers(lo, hi + 1)))]
+            for _ in range(n)]
+
+
+def _greedy_trace(model, prompts, n, drive=None):
+    """Greedy decode of the left-padded ``prompts`` for ``n`` tokens through
+    ``prefill_prompt`` and ``decode_apply``: (tokens [B, n], the logits each
+    token was chosen from [B, n, V] fp32). ``drive`` ([B, n] tokens) feeds
+    those tokens instead of the argmax (the int8 cache scores the exact
+    cache's context)."""
+    import torch
+
+    from dlrover_tpu_torch.models import generation
+
+    tokens, mask = generation.left_pad_prompts(prompts)
+    cache, last, pos, kv = generation.prefill_prompt(model, None, tokens, mask)
+    W = tokens.shape[1]
+    toks, logits = [], []
+    for t in range(n):
+        logits.append(last)
+        tok = last.argmax(-1) if drive is None else drive[:, t].to(last.device)
+        toks.append(tok)
+        if t == n - 1:
+            break
+        kv[:, W + t] = True
+        pos = pos + 1
+        out, cache = generation.decode_apply(model, None, cache, tok[:, None], pos[:, None], kv)
+        last = out[:, 0].float()
+    return torch.stack(toks, 1), torch.stack(logits, 1)
+
+
+def _teacher_forced(model, prompt, gen):
+    """The logits a forward without a cache gives at the positions that
+    chose ``gen`` after ``prompt`` (fp32 ``[len(gen), V]``)."""
+    import torch
+
+    x = torch.tensor([list(prompt) + [int(t) for t in gen[:-1]]], device=model.device)
+    with torch.no_grad():
+        logits = model(x)[0].float()
+    return logits[len(prompt) - 1:]
+
+
+def _token_rule(got, want, ref_logits, delta):
+    """(failed, excused) for the token lists ``got`` against ``want``, up to
+    their first difference (the contexts part there): a difference counts
+    as a failure only where the reference's top-2 gap at that position
+    exceeds ``2 * delta``, twice the measured logit difference (two logits
+    that each move by up to delta can swap within 2 delta)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            top2 = ref_logits[i].topk(2).values
+            return (0, 1) if float(top2[0] - top2[1]) <= 2 * delta else (1, 0)
+    return (0, 0) if len(got) == len(want) else (1, 0)
+
+
+def _rule_over(outs, refs, delta):
+    """``_token_rule`` summed over requests: outs and refs are token lists,
+    refs carrying their logits ([(tokens, logits)])."""
+    failed = excused = 0
+    for got, (want, logits) in zip(outs, refs):
+        f, e = _token_rule(got, want, logits, delta)
+        failed += f
+        excused += e
+    return failed, excused
+
+
+def _trace_against_forward(model, prompts, n):
+    """A greedy trace of ``prompts`` and each row's teacher-forced logits:
+    (tokens, the largest logit difference, the largest reference logit,
+    (failed, excused) of the trace's tokens against the forward's argmax).
+    The difference is the larger of the trace's against the forward's and
+    the trace's first two rows against the same rows decoded alone, driven
+    by the same tokens: what another batch shape (another choice of
+    algorithm, another order of sums) moves a row's logits by."""
+    toks, logits = _greedy_trace(model, prompts, n)
+    refs = [_teacher_forced(model, p, toks[b].tolist()) for b, p in enumerate(prompts)]
+    alone = [_greedy_trace(model, [p], n, drive=toks[b:b + 1])[1][0]
+             for b, p in enumerate(prompts[:2])]
+    delta = max([float((logits[b] - ref).abs().max()) for b, ref in enumerate(refs)]
+                + [float((logits[b] - row).abs().max()) for b, row in enumerate(alone)])
+    top = max(float(ref.abs().max()) for ref in refs)
+    failed, excused = _rule_over([t.tolist() for t in toks],
+                                 [(ref.argmax(-1).tolist(), ref) for ref in refs], delta)
+    return toks, delta, top, failed, excused
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _decode_numbers(model, prompts, n, device):
+    """The decode step of ``prompts`` (one batch, left-padded): prefill
+    seconds, a step's host wall seconds over ``n`` steps (synchronised at the
+    ends), the device's seconds for one step with the host queued ahead
+    (CUDA events after a device sleep, so the step's launches are all
+    queued when it starts; median of 5), and the busy share, device over
+    wall. CPU runs give the wall numbers only."""
+    import torch
+
+    from dlrover_tpu_torch.models import generation
+
+    cuda = torch.device(device).type == "cuda"
+    tokens, mask = generation.left_pad_prompts(prompts)
+    W = tokens.shape[1]
+    prefill = []
+    for _ in range(3):
+        _sync(device)
+        t0 = time.perf_counter()
+        cache, last, pos, kv = generation.prefill_prompt(model, None, tokens, mask)
+        _sync(device)
+        prefill.append(time.perf_counter() - t0)
+
+    def one(t):
+        nonlocal cache, last, pos
+        kv[:, W + t] = True
+        pos = pos + 1
+        out, cache = generation.decode_apply(model, None, cache, last.argmax(-1)[:, None],
+                                             pos[:, None], kv)
+        last = out[:, 0].float()
+
+    one(0)  # warm-up
+    _sync(device)
+    t0 = time.perf_counter()
+    for t in range(1, n):
+        one(t)
+    _sync(device)
+    wall = (time.perf_counter() - t0) / (n - 1)
+    out = {"prefill_ms": statistics.median(prefill) * 1e3, "decode_step_ms": wall * 1e3,
+           "batch": len(prompts), "prompt_width": W}
+    if not cuda:
+        out.update(device_step_ms="not measured", busy_share="not measured")
+        return out
+    cache, last, pos, kv = generation.prefill_prompt(model, None, tokens, mask)
+    device_ms = []
+    for t in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000_000)  # about 0.1 s: the step's launches queue behind it
+        start.record()
+        one(t)
+        end.record()
+        end.synchronize()
+        device_ms.append(start.elapsed_time(end))
+    out["device_step_ms"] = statistics.median(device_ms)
+    out["busy_share"] = out["device_step_ms"] / out["decode_step_ms"]
+    return out
+
+
+def _cache_bytes(model, batch):
+    from dlrover_tpu_torch.models import generation
+
+    cache = generation.init_cache(model, batch)
+    return sum(t.numel() * t.element_size() for layer in cache["layers"] for t in layer.values())
+
+
+def _http(port, method, path, body=None, timeout=300):
+    """(status, parsed JSON body, or the NDJSON lines of a stream) of one
+    request to the local server."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        raw = resp.read().decode()
+        if resp.getheader("Content-Type") == "application/x-ndjson":
+            return resp.status, [json.loads(ln) for ln in raw.splitlines() if ln.strip()]
+        return resp.status, json.loads(raw)
+    finally:
+        conn.close()
+
+
+def torch_device_type(device):
+    import torch
+
+    return torch.device(device).type
+
+
+def _start_server(work, job, ckpt_dir, sizes, small, device):
+    """The user's command as a child process in its own session: (proc,
+    its output's path)."""
+    cfg = _serve_config(small)
+    cmd = [sys.executable, "-m", "dlrover_tpu_torch.launcher.serve", "--ckpt-dir", ckpt_dir,
+           "--config", json.dumps(cfg), "--batch-size", str(sizes["batch"]),
+           "--prompt-width", str(sizes["width"]), "--max-new-tokens", str(sizes["new"]),
+           "--decode-chunk", str(sizes["chunk"]), "--temperature", "0", "--port", "0"]
+    if torch_device_type(device) == "cpu":
+        cmd.append("--cpu")
+    env = dict(os.environ, DLROVER_JOB_NAME=job)
+    env.pop("DLROVER_IPC_NAMESPACE", None)
+    out_path = os.path.join(work, "serve.out")
+    with open(out_path, "w") as out, open(os.path.join(work, "serve.err"), "w") as err:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=err, env=env, start_new_session=True,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, out_path
+
+
+def _server_line(proc, out_path, work, deadline):
+    """The server's ``serve {...}`` record, once it listens."""
+    while time.monotonic() < deadline:
+        with open(out_path) as f:
+            for line in f:
+                if line.startswith("serve ") and line.endswith("\n"):
+                    return json.loads(line[len("serve "):])
+        if proc.poll() is not None:
+            break
+        time.sleep(0.2)
+    with open(os.path.join(work, "serve.err")) as f:
+        err = f.read()[-4000:]
+    raise AssertionError(f"the server did not come up (exit {proc.poll()}):\n{err}")
+
+
+def serve_phase(work, job, reference, device="cuda", small=False, card=None):
+    """Phase 14: decode and serving. ``reference`` holds ``ckpt_dir`` (the
+    storage checkpoint phase 5 persisted, its latest step the bench
+    trainer's), ``persisted`` (that step and its parameters' SHA-256) and
+    ``llama_params`` (phase 9's dense Llama parameters after 3 steps, a
+    ``torch.save`` of ``{name: tensor}``). Raises on the first failed check;
+    returns the phase's numbers (the ``serving`` line)."""
+    import dataclasses as dc
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from dlrover_tpu_torch.launcher import serve as tserve
+    from dlrover_tpu_torch.models import generation, gpt, llama, serving
+
+    t_phase = time.perf_counter()
+    sizes = SERVE[small]
+    cuda = torch_device_type(device) == "cuda"
+    out = {"card": card or (card_line() if cuda else "CPU"), "sizes": sizes}
+    greedy = generation.SamplingConfig(max_new_tokens=sizes["new"], temperature=0.0)
+
+    # (a) exactness in fp32
+    t0 = time.perf_counter()
+    if small:
+        cfg32 = dc.replace(gpt.GPTConfig.tiny(), dtype=torch.float32)
+    else:
+        cfg32 = gpt.GPTConfig(**dict(_gpt2_small_dims(), num_layers=SERVE_FP32_LAYERS),
+                              dtype=torch.float32, use_remat=False)
+    model32 = gpt.GPT(cfg32, device=device, seed=SERVE_SEED)
+    prompts = _serve_prompts(sizes["prompts"], sizes["lo"], sizes["hi"], cfg32.vocab_size,
+                             SERVE_SEED)
+    batch = prompts[:sizes["batch"]]
+    toks, delta32, _, failed, excused = _trace_against_forward(model32, batch, sizes["new"])
+    gen_toks, gen_mask, gen_logp = generation.generate(
+        model32, None, *generation.left_pad_prompts(batch), None, greedy)
+    _check(torch.equal(gen_toks.cpu(), toks.cpu()) and bool(gen_mask.all())
+           and bool(torch.isfinite(gen_logp).all()), "generate's tokens differ from the trace's")
+    log(f"  (a) fp32, {cfg32.num_layers} layers: decode logits against the teacher-forced "
+        f"forward, max diff {delta32:.3e} (tol {SERVE_FP32_TOL}); tokens: {failed} failed, "
+        f"{excused} excused")
+    _check(delta32 <= SERVE_FP32_TOL, f"fp32 decode logits differ by {delta32}")
+    _check(failed == 0, f"{failed} fp32 greedy tokens differ from the forward's argmax")
+    one_shot = [_greedy_trace(model32, [p], sizes["new"]) for p in prompts]
+    refs = [(t[0].tolist(), lg[0]) for t, lg in one_shot]
+    runs = {}
+    for name, layout, overlap in (("per_row", "per_row", True), ("frontier", "frontier", True),
+                                  ("per_row_sync", "per_row", False)):
+        eng = serving.ContinuousBatchingEngine(
+            model32, None, greedy, batch_size=sizes["batch"], prompt_width=sizes["width"],
+            decode_chunk=sizes["chunk"], cache_layout=layout, overlap=overlap)
+        done = eng.run(prompts)
+        _check([c.uid for c in done] == list(range(len(prompts))), f"{name}: uids {done}")
+        runs[name] = [c.tokens for c in done]
+    engine_rule = {name: _rule_over(t, refs, delta32) for name, t in runs.items()}
+    log(f"  (a) engine ({len(prompts)} prompts, {sizes['batch']} slots) against one-shot "
+        f"generate, (failed, excused): {engine_rule}")
+    _check(all(f == 0 for f, _ in engine_rule.values()), f"engine tokens: {engine_rule}")
+    _check(runs["per_row_sync"] == runs["per_row"], "the sync round differs from the overlapped")
+    frontier = _rule_over(runs["frontier"], [(t, lg) for t, (_, lg) in
+                                             zip(runs["per_row"], refs)], delta32)
+    _check(frontier[0] == 0, f"frontier against per_row: {frontier}")
+    out["fp32"] = {"layers": cfg32.num_layers, "logit_max_diff": delta32,
+                   "tol": SERVE_FP32_TOL, "excused_tokens": excused,
+                   "engine_against_one_shot": engine_rule, "frontier_against_per_row": frontier,
+                   "seconds": time.perf_counter() - t0}
+    del model32, one_shot, refs
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) the user's command, beside the same restored weights in this process
+    t0 = time.perf_counter()
+    proc, out_path = _start_server(work, job, reference["ckpt_dir"], sizes, small, device)
+    try:
+        cfg = gpt.GPTConfig(**_serve_config(small))
+        model = gpt.GPT(cfg, device=device)
+        t_restore = time.perf_counter()
+        step, params = tserve._restore_params(model, reference["ckpt_dir"])
+        restore_s = time.perf_counter() - t_restore
+        restored_hash = params_sha256(params)
+        log(f"  (b) restored step {step} in {restore_s:.2f} s; parameters hash-equal to the "
+            f"persisted step's: {restored_hash == reference['persisted']['params_sha256']}")
+        _check(step == reference["persisted"]["step"],
+               f"restored step {step}, persisted {reference['persisted']['step']}")
+        _check(restored_hash == reference["persisted"]["params_sha256"],
+               "the restored parameters differ from the persisted step's")
+        model.load_state_dict(params)
+        prompts = _serve_prompts(sizes["prompts"], sizes["lo"], sizes["hi"], cfg.vocab_size,
+                                 SERVE_SEED + 1)
+        batch = prompts[:sizes["batch"]]
+        trace_toks, delta, top, failed, excused = _trace_against_forward(model, batch,
+                                                                         sizes["new"])
+        tol = SERVE_BF16_REL_TOL * top
+        log(f"  (b) bf16 at full width: decode logits against the teacher-forced forward, max "
+            f"diff {delta:.3e} (tol {tol:.3e}); tokens: {failed} failed, {excused} excused")
+        _check(delta <= tol, f"bf16 decode logits differ by {delta}")
+        _check(failed == 0, f"{failed} bf16 greedy tokens differ from the forward's argmax")
+        bf16 = _decode_numbers(model, batch, sizes["new"], device)
+        eng = serving.ContinuousBatchingEngine(
+            model, None, greedy, batch_size=sizes["batch"], prompt_width=sizes["width"],
+            decode_chunk=sizes["chunk"], cache_layout="per_row")
+        local = eng.run(prompts)
+        local_tokens = [c.tokens for c in local]
+        local_refs = [(t, _teacher_forced(model, p, t)) for p, t in zip(prompts, local_tokens)]
+
+        # (c) the int8 cache, driven by the exact cache's tokens
+        t_int8 = time.perf_counter()
+        model8 = gpt.GPT(dc.replace(cfg, kv_cache_int8=True), device=device)
+        model8.load_state_dict(params)
+        _, exact = _greedy_trace(model, batch, sizes["new"], drive=trace_toks)
+        _, quant = _greedy_trace(model8, batch, sizes["new"], drive=trace_toks)
+        cos = torch.nn.functional.cosine_similarity(exact, quant, dim=-1)
+        int8 = _decode_numbers(model8, batch, sizes["new"], device)
+        log(f"  (c) int8 cache against the exact one: min cosine {float(cos.min()):.6f} "
+            f"(bound {SERVE_INT8_COS})")
+        _check(bool((cos > SERVE_INT8_COS).all()), f"int8 cosine {float(cos.min())}")
+        int8.update(min_cosine=float(cos.min()), seconds=time.perf_counter() - t_int8)
+        cache_bytes = {"bf16": _cache_bytes(model, sizes["batch"]),
+                       "int8": _cache_bytes(model8, sizes["batch"])}
+        del model8, exact, quant
+
+        # the server: concurrent completions, a reload, a stream, /healthz
+        rec = _server_line(proc, out_path, work, time.monotonic() + SERVE_BOOT_S)
+        port = rec["port"]
+        _check(rec["step"] == step, f"the server restored step {rec['step']}")
+        _check(torch.device(rec["device"]).type == torch_device_type(device),
+               f"the server runs on {rec['device']}")
+        t_http = time.perf_counter()
+        with ThreadPoolExecutor(len(prompts)) as pool:
+            answers = list(pool.map(
+                lambda p: _http(port, "POST", "/v1/completions", {"prompt": p}), prompts))
+        http_s = time.perf_counter() - t_http
+        _check(all(code == 200 for code, _ in answers), f"completions: {answers[:2]}")
+        served = [a["tokens"] for _, a in answers]
+        server_rule = _rule_over(served, local_refs, delta)
+        code, health = _http(port, "GET", "/healthz")  # the burst's window
+        _check(code == 200 and health["completed_total"] == len(prompts),
+               f"/healthz: {code} {health}")
+        code, reload = _http(port, "POST", "/v1/weights/reload", {})
+        _check(code == 200 and reload["step"] == step, f"reload: {code} {reload}")
+        code, lines = _http(port, "POST", "/v1/completions", {"prompt": prompts[0],
+                                                              "stream": True})
+        _check(code == 200 and lines[-1].get("done"), f"stream: {code} {lines[-1:]}")
+        streamed = [t for ln in lines[:-1] for t in ln["tokens"]]
+        _check(streamed == lines[-1]["tokens"], "the stream's chunks differ from its completion")
+        stream_rule = _token_rule(lines[-1]["tokens"], *local_refs[0], delta)
+        code, after = _http(port, "GET", "/healthz")
+        _check(code == 200 and after["completed_total"] == len(prompts) + 1
+               and after["last_swap_latency_s"] is not None, f"/healthz: {code} {after}")
+        code, bad = _http(port, "POST", "/v1/completions", {"prompt": "x"})
+        _check(code == 400, f"a bad prompt gave {code}")
+        log(f"  (b) the server: {len(prompts)} concurrent completions in {http_s:.2f} s, "
+            f"(failed, excused) against this process's engine {server_rule}, the stream "
+            f"after the reload {stream_rule}; /healthz tokens_per_s {health['tokens_per_s']}, "
+            f"latency p50 {health['latency_p50_s']} s, p95 {health['latency_p95_s']} s")
+        _check(server_rule[0] == 0 and stream_rule[0] == 0,
+               f"server tokens: {server_rule}, stream {stream_rule}")
+        ttft = sorted(a["ttft_s"] for _, a in answers)
+    finally:
+        if proc.poll() is None:
+            os.kill(proc.pid, signal.SIGTERM)
+        try:
+            rc = proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait(30)
+        leaked, segments = _reap_leftovers([proc.pid], [proc.pid], [f"tpurun_serve_{proc.pid}"])
+    log(f"  (b) the server exited {rc} on SIGTERM; left behind: {leaked} {segments}")
+    if rc != 0:
+        with open(os.path.join(work, "serve.err")) as f:
+            raise AssertionError(f"the server exited {rc} on SIGTERM:\n{f.read()[-4000:]}")
+    _check(not leaked and not segments, f"left behind: {leaked} {segments}")
+    out["serve"] = {
+        "restored_step": step, "restore_s": restore_s, "logit_max_diff": delta, "tol": tol,
+        "excused_tokens": excused, "server_against_engine": server_rule,
+        "stream_against_engine": stream_rule, "reload_swap_latency_s": reload["swap_latency_s"],
+        "completions": len(prompts), "http_s": http_s,
+        "client_tokens_per_s": sum(len(t) for t in served) / http_s,
+        "tokens_per_s": health["tokens_per_s"], "latency_p50_s": health["latency_p50_s"],
+        "latency_p95_s": health["latency_p95_s"], "ttft_p50_s": ttft[len(ttft) // 2],
+        "serving_host_frac": health["serving_host_frac"],
+        "seconds": time.perf_counter() - t0}
+    out["decode_bf16"], out["decode_int8"], out["cache_bytes"] = bf16, int8, cache_bytes
+    del model, params
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (d) Llama-125M's narrow GQA cache on phase 9's weights
+    t0 = time.perf_counter()
+    base = dict(LLAMA_SMALL if small else LLAMA_125M, attention_impl="dense", use_remat=False)
+    lmodel = llama.Llama(llama.LlamaConfig(**base), device=device)
+    lmodel.load_state_dict(torch.load(reference["llama_params"], weights_only=True))
+    lcfg = lmodel.config
+    shape = tuple(generation.init_cache(lmodel, sizes["batch"])["layers"][0]["k"].shape)
+    want = (sizes["batch"], lcfg.max_seq_len, lcfg.num_kv_heads, lcfg.head_dim)
+    _check(shape == want, f"the Llama cache is {shape}, not {want}")
+    lprompts = _serve_prompts(sizes["batch"], sizes["lo"], sizes["hi"], lcfg.vocab_size,
+                              SERVE_SEED + 2)
+    ltoks, ldelta, ltop, lfailed, lexcused = _trace_against_forward(lmodel, lprompts,
+                                                                    sizes["new"])
+    gen_toks, gen_mask, _ = generation.generate(
+        lmodel, None, *generation.left_pad_prompts(lprompts), None, greedy)
+    _check(torch.equal(gen_toks, ltoks) and bool(gen_mask.all()),
+           "Llama's generate gives other tokens than its trace")
+    ltol = SERVE_BF16_REL_TOL * ltop
+    log(f"  (d) Llama, cache {shape} a layer: decode logits against the teacher-forced "
+        f"forward, max diff {ldelta:.3e} (tol {ltol:.3e}); tokens: {lfailed} failed, "
+        f"{lexcused} excused")
+    _check(ldelta <= ltol, f"Llama decode logits differ by {ldelta}")
+    _check(lfailed == 0, f"{lfailed} Llama greedy tokens differ from the forward's argmax")
+    out["llama"] = {"cache_shape": list(shape), "logit_max_diff": ldelta, "tol": ltol,
+                    "excused_tokens": lexcused,
+                    "decode": _decode_numbers(lmodel, lprompts, sizes["new"], device),
+                    "cache_bytes": _cache_bytes(lmodel, sizes["batch"]),
+                    "seconds": time.perf_counter() - t0}
+    del lmodel
+    if cuda:
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def _gpu_count() -> int:
     """GPUs of this machine from ``nvidia-smi -L``, without a CUDA context
     in this process (the workers own the devices)."""
@@ -4981,6 +5520,15 @@ def _timed_phase(seconds, name):
 
 
 def smoke(job_log_dir=None) -> int:
+    # what phase 14 serves: phase 5's storage checkpoint and phase 9's weights
+    keep = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        return _smoke(job_log_dir, keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+
+
+def _smoke(job_log_dir, keep) -> int:
     import torch
 
     from dlrover_tpu_torch.common.platform import strict_fp32
@@ -5040,6 +5588,9 @@ def smoke(job_log_dir=None) -> int:
         try:
             facts, numbers = checkpoint_phase(
                 work, f"chip_smoke_{os.getpid()}_{int(time.time())}", n_params=result["n_params"])
+            # phase 14 serves the newest persisted step (the bench trainer's)
+            serve_ckpt = os.path.join(keep, "gpt_ckpt")
+            shutil.move(os.path.join(work, "ckpt"), serve_ckpt)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         log("checkpoint and elastic loop: " + json.dumps(facts))
@@ -5149,6 +5700,10 @@ def smoke(job_log_dir=None) -> int:
             finally:
                 shutil.rmtree(work, ignore_errors=True)
     finally:
+        # phase 14 serves phase 9's dense parameters after 3 steps
+        llama_params = os.path.join(llama_ref, f"dense_params_{LLAMA_LAYOUT_STEPS}.pt")
+        if os.path.exists(llama_params):
+            shutil.move(llama_params, keep)
         shutil.rmtree(llama_ref, ignore_errors=True)
 
     with _timed_phase(seconds, "phase13_pipeline"):
@@ -5162,6 +5717,21 @@ def smoke(job_log_dir=None) -> int:
         finally:
             shutil.rmtree(work, ignore_errors=True)
         log("pipeline: " + json.dumps(pipe))
+
+    with _timed_phase(seconds, "phase14_serve"):
+        log("decode and serving: the decode path in fp32 against a teacher-forced forward and "
+            "the continuous engine against one-shot generate; the serving command restoring "
+            "phase 5's checkpoint and answering concurrent completions over HTTP; the int8 "
+            "cache; Llama-125M's GQA cache on phase 9's weights")
+        work = tempfile.mkdtemp(prefix="chip_smoke_serve_work_")
+        try:
+            serving_numbers = serve_phase(
+                work, f"chip_smoke_sv_{os.getpid()}_{int(time.time())}", card=card,
+                reference={"ckpt_dir": serve_ckpt, "persisted": numbers["persisted"],
+                           "llama_params": os.path.join(
+                               keep, f"dense_params_{LLAMA_LAYOUT_STEPS}.pt")})
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
 
     def base(shape):
         return {k: shape[k] for k in ("B", "T", "H", "D", "causal")}
@@ -5235,6 +5805,7 @@ def smoke(job_log_dir=None) -> int:
     print(json.dumps({"layouts": layouts}), flush=True)
     print(json.dumps({"llama_layouts": llama_layouts}), flush=True)
     print(json.dumps({"pipeline": pipe}), flush=True)
+    print(json.dumps({"serving": serving_numbers}), flush=True)
     print(json.dumps({"phase_seconds": seconds}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,4 +1,4 @@
-"""GPT decoder-only transformer, training half: the port of
+"""GPT decoder-only transformer, training and decode: the port of
 ``dlrover_tpu/models/gpt.py``.
 
 Same configuration, parameter shapes and numerics as the JAX model: fp32
@@ -11,8 +11,25 @@ and an optional sequence-chunked fused cross-entropy. Parameters are raw
 
 ``use_remat`` recomputes each block in backward with
 ``torch.utils.checkpoint`` (the counterpart of ``nn.remat`` with
-``remat_policy="nothing"``). Not ported yet: decode mode (the KV cache and
-its int8 variant) and the ``"dots"`` remat policy.
+``remat_policy="nothing"``). Not ported yet: the ``"dots"`` remat policy.
+
+Decode mode (``forward(tokens, decode=True, positions=, kv_valid=,
+cache_slots=, cache=)`` returns ``(logits, cache)``) is the JAX model's
+incremental decoding over a KV cache. Torch has no flax ``"cache"``
+collection, so the cache is an explicit structure (``empty_cache``):
+``{"index": int, "layers": [{"k", "v"[, "k_scale", "v_scale"]}, ...]}``,
+one entry a layer, ``k`` and ``v`` of ``[B, max_seq_len, KVH, Hd]`` in the
+compute dtype (``int8`` with ``kv_cache_int8``, beside fp32 scales
+``[B, max_seq_len, KVH]``), and ``index`` the shared write offset, a host
+integer. The write is in place (a slice copy at ``index``, or an
+``index_put_`` at ``cache_slots``), so no step copies the whole cache: the
+returned cache is the object passed in, and a caller that keeps an older
+reference sees the new contents. A caller that needs the old contents
+(a stored prefix) clones it first (:func:`clone_cache`). Remat is bypassed
+in decode, the learned positions are gathered per row (``wpe[positions]``),
+and the attention is the plain masked one over the whole cache
+(:func:`cached_decode_attention`), never the flash kernels, as in the JAX
+model. Decode runs on whole parameters: on a mesh it raises.
 
 Each parameter's logical axes are the JAX model's ``param_with_axes``
 annotations (:func:`logical_axes`). On a mesh (``parallel/sharding.py``'s
@@ -44,15 +61,19 @@ A dim the mesh axis does not divide stays whole (the JAX cleaning), and so
 does the layer's computation on every process of that axis.
 """
 
+import functools
 import math
 from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..common.platform import resolve_device
+from ..common.platform import not_ported, resolve_device
 from ..ops.flash_attention import flash_attention
 from ..ops.ring_attention import ring_attention_sharded
 from ..parallel import collectives
@@ -148,6 +169,10 @@ class GPTConfig:
     use_flash_attention: bool = False
     attention_impl: str = ""  # "dense" | "flash" | "ring" (sp-sharded exact attention)
     tie_embeddings: bool = True
+    # int8 decode KV cache: values stored int8 with a per-token per-kv-head
+    # scale (amax/127); decode attention runs on the int8 operands
+    # (_masked_attention_int8). The training forward is untouched.
+    kv_cache_int8: bool = False
 
     def resolved_attention_impl(self) -> str:
         if self.attention_impl:
@@ -236,6 +261,15 @@ class CausalSelfAttention(nn.Module):
         y = torch.einsum("bqhk,hkd->bqd", out, wo)
         return collectives.reduce_from_group(y, tp)
 
+    def decode(self, x, layer, mask, slots, offset):
+        """This call's K/V written into ``layer`` (its entry of the cache),
+        then attention over the whole cache (:func:`cached_decode_attention`)."""
+        dt = self.cfg.dtype
+        qkv = torch.einsum("btd,dchk->cbthk", x, self.wqkv.to(dt))
+        q, k, v = qkv.unbind(0)
+        return cached_decode_attention(layer, q, k, v, mask, self.wo.to(dt), self.cfg, slots,
+                                       offset)
+
 
 def _ring_mesh():
     mesh = get_current_mesh()
@@ -259,15 +293,19 @@ def seq_offset(impl: str, t_local: int) -> int:
     return mesh.coord["sp"] * t_local
 
 
+@functools.lru_cache(maxsize=None)
+def attention_scale(head_dim: int, dtype: torch.dtype) -> float:
+    """1/sqrt(head_dim) rounded as the JAX models round it: sqrt in fp32,
+    then the reciprocal in the compute dtype."""
+    return torch.tensor(float(head_dim)).sqrt().to(dtype).reciprocal().item()
+
+
 def dense_attention(q, k, v, dtype):
     """Causal softmax attention over ``[B, T, H, Hd]`` as the JAX models
     write their dense branch: logits in ``dtype``, masked with -1e9, the
     softmax in fp32 and its probabilities cast back to ``dtype``."""
     T, Hd = q.shape[1], q.shape[-1]
-    # 1/sqrt(Hd) rounded as the JAX models round it: sqrt in fp32, then the
-    # reciprocal in the compute dtype
-    scale = torch.tensor(float(Hd)).sqrt().to(dtype).reciprocal()
-    logits = torch.einsum("bqhk,bshk->bhqs", q, k) * scale.item()
+    logits = torch.einsum("bqhk,bshk->bhqs", q, k) * attention_scale(Hd, dtype)
     mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
     logits = torch.where(mask[None, None], logits, -1e9)
     probs = torch.softmax(logits.float(), dim=-1).to(dtype)
@@ -311,6 +349,10 @@ class Block(nn.Module):
 
     def forward(self, x):
         x = x + self.attn(self.ln_1(x))
+        return x + self.mlp(self.ln_2(x))
+
+    def decode(self, x, layer, mask, slots, offset):
+        x = x + self.attn.decode(self.ln_1(x), layer, mask, slots, offset)
         return x + self.mlp(self.ln_2(x))
 
 
@@ -366,9 +408,10 @@ class GPT(nn.Module):
             if not self.config.tie_embeddings:
                 nn.init.normal_(self.lm_head, 0.0, 0.02, generator=g)
 
-    def forward(self, tokens, *, targets=None, decode: bool = False):
+    def forward(self, tokens, *, targets=None, decode: bool = False, positions=None,
+                kv_valid=None, cache_slots=None, cache=None):
         if decode:
-            raise NotImplementedError("decode mode is not ported yet")
+            return self._decode(tokens, positions, kv_valid, cache_slots, cache)
         cfg = self.config
         T = tokens.shape[1]
         # wte gathered once for the lookup and the head
@@ -392,6 +435,28 @@ class GPT(nn.Module):
                                      vocab=vocab)
         logits = _head(x, w_head, vocab_first)
         return logits if vocab is None else collectives.gather_from_group(logits, vocab[0], -1)
+
+
+    def _decode(self, tokens, positions, kv_valid, cache_slots, cache):
+        """Decode mode: ``(logits [B, T, V], cache)``; see the module's
+        docstring and :func:`decode_mask`."""
+        cfg = self.config
+        if positions is None:
+            raise ValueError("decode=True needs absolute positions")
+        if cache is None:
+            raise ValueError("decode=True needs a cache (generation.init_cache)")
+        whole_params_only(self)
+        mask, slots, offset = decode_mask(cache, tokens.shape, kv_valid, cache_slots)
+        dt = cfg.dtype
+        wte = self.wte.to(dt)
+        x = wte[tokens] + self.wpe.to(dt)[positions]
+        for block, layer in zip(self.blocks, cache["layers"]):
+            x = block.decode(x, layer, mask, slots, offset)
+        advance_cache(cache, tokens.shape[1], slots)
+        x = self.ln_f(x)
+        if cfg.tie_embeddings:
+            return _head(x, wte, True), cache
+        return _head(x, self.lm_head.to(dt), False), cache
 
 
 def _vocab_split(p, dim: int, mesh):
@@ -503,3 +568,212 @@ def token_loss_mean(token_losses, targets, ignore_index: int = -1):
     sums = torch.stack((token_losses.sum(), mask.sum().to(token_losses.dtype)))
     total, count = collectives.sum_over_group(sums, sp, part="sp_loss").unbind()
     return total / count.clamp(min=1)
+
+
+# -- decode: the KV cache ------------------------------------------------------
+
+# fp32 holds every integer up to 2**24 exactly: a contraction of int8 values
+# (|x| <= 127) is exact in fp32 while n * 127**2 stays below it
+_FP32_EXACT = 2 ** 24
+
+
+def exact_int8_dtype(n: int) -> torch.dtype:
+    """The float dtype in which a contraction of length ``n`` over int8
+    values is exact: fp32 while every partial sum is an integer below 2**24
+    (``n * 127**2 < 2**24``, n <= 1040: Hd=64 for QK, up to 1040 cache slots
+    for PV), fp64 beyond (exact to 2**53). JAX contracts the int8 operands
+    in int32; torch has no int8 x int8 -> int32 einsum on CUDA, and
+    ``torch._int_mm`` needs more than 16 rows, which a decode step lacks."""
+    return torch.float32 if n * 127 * 127 < _FP32_EXACT else torch.float64
+
+
+def _quant_kv(x):
+    """Per-token per-kv-head symmetric int8: ``[..., Hd]`` -> (int8 values,
+    fp32 scales ``[...]``)."""
+    xf = x.float()
+    scale = (xf.abs().amax(-1) / 127.0).clamp(min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequant_kv(q, scale, dtype):
+    """Inverse of :func:`_quant_kv`, a round-trip helper only: the attention
+    reads the int8 operands directly (:func:`_masked_attention_int8`)."""
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def empty_cache(cfg, batch_size: int, kv_heads: int, device) -> Dict:
+    """A zero decode cache for ``batch_size`` rows of ``cfg.max_seq_len``
+    slots and ``kv_heads`` K/V heads (the structure of the module's
+    docstring)."""
+    shape = (batch_size, cfg.max_seq_len, kv_heads, cfg.head_dim)
+    layers = []
+    for _ in range(cfg.num_layers):
+        if getattr(cfg, "kv_cache_int8", False):
+            layer = {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                     "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                     "k_scale": torch.zeros(shape[:3], dtype=torch.float32, device=device),
+                     "v_scale": torch.zeros(shape[:3], dtype=torch.float32, device=device)}
+        else:
+            layer = {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                     "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+        layers.append(layer)
+    return {"index": 0, "layers": layers}
+
+
+def clone_cache(cache: Dict) -> Dict:
+    """A copy of ``cache`` whose tensors are its own."""
+    return {"index": cache["index"],
+            "layers": [{k: t.clone() for k, t in layer.items()} for layer in cache["layers"]]}
+
+
+def whole_params_only(model) -> None:
+    """Decode runs on whole parameters: a model placed on a mesh raises."""
+    if any(shard_layout(p) is not None and not shard_layout(p).is_whole
+           for p in model.parameters()):
+        raise not_ported("decode on a mesh (serving a sharded model)")
+
+
+def decode_mask(cache: Dict, token_shape, kv_valid, cache_slots):
+    """``(mask [B, T, max_len], slots [B, T] or None, offset)`` of one
+    decode call: where this call's K/V go and which cache slots each of its
+    queries attends, as the JAX ``_update_decode_cache`` computes them.
+
+    Shared-offset mode (``cache_slots`` None, the generation convention of
+    left-padded prompts): every row writes at ``offset = cache["index"]``;
+    ``kv_valid [B, max_len]`` marks the slots that hold real tokens (None:
+    every slot below the write frontier), and the query at slot ``offset +
+    i`` sees valid slots up to its own. A write past the cache's end raises
+    (``dynamic_update_slice`` clamps it in JAX, which would overwrite valid
+    slots). ``cache_slots`` switches to per-row write slots, ``[B]`` for a
+    one-token step or ``[B, T]`` for a window, and needs ``kv_valid``."""
+    B, T = token_shape
+    L = cache["layers"][0]["k"].shape[1]
+    device = cache["layers"][0]["k"].device
+    ar = torch.arange(L, device=device)
+    if cache_slots is not None:
+        if kv_valid is None:
+            raise ValueError("cache_slots mode needs explicit kv_valid")
+        slots = cache_slots[:, None] if cache_slots.dim() == 1 else cache_slots
+        if tuple(slots.shape) != (B, T):
+            raise ValueError(f"cache_slots {tuple(cache_slots.shape)} incompatible with "
+                             f"tokens [B={B}, T={T}]")
+        causal = ar[None, None, :] <= slots[:, :, None]  # [B, T, L]
+        return kv_valid[:, None, :] & causal, slots, None
+    offset = int(cache["index"])
+    if offset + T > L:
+        raise ValueError(f"decode write at slots [{offset}, {offset + T}) past the cache's "
+                         f"{L} slots")
+    if kv_valid is None:
+        kv_valid = (ar < offset + T)[None, :].expand(B, L)
+    slot_q = torch.arange(offset, offset + T, device=device)
+    causal = ar[None, :] <= slot_q[:, None]  # [T, L]
+    return kv_valid[:, None, :] & causal[None, :, :], None, offset
+
+
+def advance_cache(cache: Dict, T: int, slots) -> None:
+    """After a shared-offset call, the write frontier moves past its
+    ``T`` tokens; per-row writes leave it where it is, as in JAX."""
+    if slots is None:
+        cache["index"] = int(cache["index"]) + T
+
+
+def _update_decode_cache(layer: Dict, k, v, slots, offset: Optional[int]):
+    """Write this call's K/V (``[B, T, KVH, Hd]``) into ``layer``, in place,
+    at ``offset`` (shared) or at ``slots`` (``[B, T]``, per row), quantized
+    first for an int8 cache. Returns the cache as the attention reads it:
+    ``(k, v)``, or for int8 the raw operands ``(k8, k_scale, v8, v_scale)``:
+    never a dequantized copy."""
+    int8 = layer["k"].dtype == torch.int8
+    if int8:
+        (k, k_scale), (v, v_scale) = _quant_kv(k), _quant_kv(v)
+        new = {"k": k, "v": v, "k_scale": k_scale, "v_scale": v_scale}
+    else:
+        new = {"k": k, "v": v}
+    if slots is not None:
+        rows = torch.arange(k.shape[0], device=k.device)[:, None].expand_as(slots)
+        for name, value in new.items():
+            layer[name].index_put_((rows, slots), value.to(layer[name].dtype))
+    else:
+        for name, value in new.items():
+            layer[name][:, offset:offset + k.shape[1]] = value
+    if int8:
+        return layer["k"], layer["k_scale"], layer["v"], layer["v_scale"]
+    return layer["k"], layer["v"]
+
+
+def cached_decode_attention(layer: Dict, q, k, v, mask, wo, cfg, slots, offset):
+    """Write this call's K/V into the layer's cache, then attend in the
+    cache's storage precision: the plain masked attention over a bf16 (or
+    fp32) cache, the int8 x int8 route over an int8 one. The one decode
+    attention of GPT and Llama."""
+    res = _update_decode_cache(layer, k, v, slots, offset)
+    if len(res) == 2:
+        return _masked_attention(q, res[0], res[1], mask, wo, cfg)
+    return _masked_attention_int8(q, *res, mask, wo, cfg)
+
+
+def _fp32_sqrt(n: int) -> float:
+    """sqrt(n) rounded to fp32 (``jnp.sqrt(jnp.float32(n))``), as a host
+    scalar: a device tensor made from it would copy to the card and wait
+    for its queue at every call."""
+    return float(np.float32(math.sqrt(n)))
+
+
+def _masked_attention_int8(q, k8, ks, v8, vs, mask, wo, cfg):
+    """Decode attention computed on the int8 cache, as the JAX model does:
+    the query is quantized too, and the scales are factored out of the
+    contractions.
+
+    - QK: the per-(token, head) q scales and per-(token, kv-head) k scales
+      are constant along the contracted Hd, so logits = (q8 . k8) * qs * ks.
+    - PV: the v scale varies along the contracted slot axis, so it is
+      folded into the probabilities, which are re-quantized per row, and the
+      product is int8 x int8 again.
+
+    Both contractions run in a float dtype in which they are exact
+    (:func:`exact_int8_dtype`: fp32 up to 1040 along the contraction, the
+    Hd of QK and the cache's slots of PV, fp64 beyond), so they equal JAX's
+    int32 dots bit for bit; nothing is rounded quietly."""
+    B, T, H, Hd = q.shape
+    KVH, S = k8.shape[2], k8.shape[1]
+    G = H // KVH
+    q8, qs = _quant_kv(q.reshape(B, T, KVH, G, Hd))  # scales [B, T, KVH, G]
+    acc = exact_int8_dtype(Hd)
+    logits = torch.einsum("btgck,bsgk->bgcts", q8.to(acc), k8.to(acc)).float()
+    logits = logits * qs.permute(0, 2, 3, 1)[..., None]
+    logits = logits * ks.permute(0, 2, 1)[:, :, None, None, :]
+    logits = logits / _fp32_sqrt(Hd)
+    logits = torch.where(mask[:, None, None, :, :], logits, -1e9)
+    probs = torch.softmax(logits, dim=-1)
+    w = probs * vs.permute(0, 2, 1)[:, :, None, None, :]
+    wscale = (w.abs().amax(-1) / 127.0).clamp(min=1e-12)
+    w8 = torch.clamp(torch.round(w / wscale[..., None]), -127, 127)
+    acc = exact_int8_dtype(S)
+    out = torch.einsum("bgcts,bsgk->btgck", w8.to(acc), v8.to(acc)).float()
+    out = out * wscale.permute(0, 3, 1, 2)[..., None]
+    out = out.reshape(B, T, H, Hd).to(cfg.dtype)
+    return torch.einsum("bqhk,hkd->bqd", out, wo)
+
+
+def _masked_attention(q, k, v, mask, wo, cfg):
+    """Dense attention over the whole decode cache with an explicit mask
+    ``[B, T, S]``: logits in the compute dtype, masked with -1e9, the
+    softmax in fp32. A GQA-narrow cache (fewer K/V heads than query heads)
+    takes the grouped contraction: the cache is never widened."""
+    Hd = q.shape[-1]
+    H, KVH = q.shape[2], k.shape[2]
+    scale = attention_scale(Hd, q.dtype)
+    if H != KVH:
+        B, T = q.shape[:2]
+        qg = q.reshape(B, T, KVH, H // KVH, Hd)
+        logits = torch.einsum("btgck,bsgk->bgcts", qg, k) * scale
+        logits = torch.where(mask[:, None, None, :, :], logits, -1e9)
+        probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+        out = torch.einsum("bgcts,bsgk->btgck", probs, v).reshape(B, T, H, Hd)
+    else:
+        logits = torch.einsum("bqhk,bshk->bhqs", q, k) * scale
+        logits = torch.where(mask[:, None, :, :], logits, -1e9)
+        probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+        out = torch.einsum("bhqs,bshk->bqhk", probs, v)
+    return torch.einsum("bqhk,hkd->bqd", out, wo)

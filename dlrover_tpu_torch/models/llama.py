@@ -1,4 +1,4 @@
-"""Llama-family decoder, training half: the port of
+"""Llama-family decoder, training and decode: the port of
 ``dlrover_tpu/models/llama.py``.
 
 RMSNorm, rotary embeddings, grouped-query attention, SwiGLU, and optional
@@ -23,8 +23,17 @@ forward), which ``parallel/train_step.py`` reads: a side effect inside the
 checkpointed block would run again in backward.
 
 ``use_remat`` recomputes each block in backward (``nn.remat`` with
-``nothing_saveable``). Not ported yet: decode (``apply_rope_at``, the GQA
-KV cache and its int8 variant).
+``nothing_saveable``).
+
+Decode mode (``forward(tokens, decode=True, positions=, kv_valid=,
+cache_slots=, cache=)`` returns ``(logits, cache)``) takes the KV cache of
+:mod:`.gpt` (its structure and in-place writes, its int8 variant): RoPE
+turns q and k at each row's absolute positions (:func:`apply_rope_at`), the
+cache holds the narrow pre-repeat K/V (``[B, max_seq_len, KVH, Hd]``, no
+``repeat_kv``), and the attention contracts the query heads against it by
+groups. A MoE block computes its ``B x T`` tokens as the training forward
+does (the capacity of a one-token step is 1); its load-balance term is not
+collected in decode.
 
 Each parameter's logical axes are the JAX model's ``param_with_axes``
 annotations (:func:`logical_axes`). On a mesh (``parallel/sharding.py``'s
@@ -74,14 +83,15 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..common.platform import not_ported, resolve_device
+from ..common.platform import resolve_device
 from ..ops.flash_attention import flash_attention
 from ..ops.ring_attention import ring_attention_sharded
 from ..parallel import collectives
 from ..parallel.sharding import shard_layout
 from .gpt import (_axis_group, _chunked_token_ce, _embed, _gathered, _mesh_of, _placed_mesh,
-                  _ring_mesh, _tp_group, _vocab_split, cross_entropy_loss, dense_attention,
-                  seq_offset)
+                  _ring_mesh, _tp_group, _vocab_split, advance_cache, cached_decode_attention,
+                  cross_entropy_loss, decode_mask, dense_attention, seq_offset,
+                  whole_params_only)
 
 # each parameter's logical axes, as the JAX model's param_with_axes names them
 _TOP_AXES = {
@@ -140,7 +150,8 @@ class LlamaConfig:
     # (gpt.GPTConfig.ce_chunk's contract)
     ce_chunk: int = 0
     attention_impl: str = ""  # "" or "dense" | "flash" | "ring" (sp-sharded)
-    kv_cache_int8: bool = False  # decode only, which is not ported yet
+    # int8 decode KV cache with per-token per-kv-head scales (gpt.GPTConfig's)
+    kv_cache_int8: bool = False
     # MoE: num_experts > 0 replaces every `moe_every`-th block's MLP with a
     # top-2 expert layer (0 = dense model)
     num_experts: int = 0
@@ -207,6 +218,17 @@ def apply_rope(x, cos, sin):
     return torch.cat((x1 * cos - x2 * sin, x1 * sin + x2 * cos), dim=-1).to(x.dtype)
 
 
+def apply_rope_at(x, cos_table, sin_table, positions):
+    """RoPE at per-row absolute positions; x ``[B, T, H, Hd]``, positions
+    ``[B, T]``: the decode path's variant of :func:`apply_rope`, whose
+    left-padded rows sit at different positions for the same cache slot,
+    so the angle tables are gathered per (row, slot)."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    cos = cos_table[positions][:, :, None, :]  # [B, T, 1, Hd // 2]
+    sin = sin_table[positions][:, :, None, :]
+    return torch.cat((x1 * cos - x2 * sin, x1 * sin + x2 * cos), dim=-1).to(x.dtype)
+
+
 def kv_groups(first: int, heads: int, rep: int):
     """``(g0, g1, offset)``: query heads ``first .. first + heads - 1`` use
     kv groups ``g0 .. g1 - 1`` (group ``g`` serves heads ``g*rep ..
@@ -243,9 +265,7 @@ class LlamaAttention(nn.Module):
             nn.init.normal_(w, 0.0, 0.02, generator=generator)
         nn.init.normal_(self.wo, 0.0, _residual_std(self.cfg), generator=generator)
 
-    def forward(self, x, *, decode: bool = False):
-        if decode:
-            raise not_ported("Llama decode (apply_rope_at and the GQA KV cache)")
+    def forward(self, x):
         cfg = self.cfg
         dt = cfg.dtype
         tp = _tp_group(self.wq, 1, _mesh_of(self.wq))  # the query heads split over tp
@@ -276,6 +296,18 @@ class LlamaAttention(nn.Module):
         else:
             raise ValueError(f"unknown attention_impl {impl!r}")
         return collectives.reduce_from_group(torch.einsum("bqhk,hkd->bqd", out, wo), tp)
+
+    def decode(self, x, layer, mask, slots, offset, positions, rope):
+        """RoPE at ``positions`` from the tables ``rope`` (cos, sin of every
+        position), then the KVH-narrow K/V into ``layer`` and attention over
+        the cache (:func:`~.gpt.cached_decode_attention`)."""
+        dt = self.cfg.dtype
+        q = torch.einsum("btd,dhk->bthk", x, self.wq.to(dt))
+        k = torch.einsum("btd,dgk->btgk", x, self.wk.to(dt))
+        v = torch.einsum("btd,dgk->btgk", x, self.wv.to(dt))
+        q, k = (apply_rope_at(t, *rope, positions) for t in (q, k))
+        return cached_decode_attention(layer, q, k, v, mask, self.wo.to(dt), self.cfg, slots,
+                                       offset)
 
 
 class SwiGluMlp(nn.Module):
@@ -426,6 +458,11 @@ class LlamaBlock(nn.Module):
         y, aux = out if isinstance(self.mlp, MoeMlp) else (out, None)
         return x + y, aux
 
+    def decode(self, x, layer, mask, slots, offset, positions, rope):
+        x = x + self.attn.decode(self.norm_1(x), layer, mask, slots, offset, positions, rope)
+        out = self.mlp(self.norm_2(x))
+        return x + (out[0] if isinstance(self.mlp, MoeMlp) else out)
+
 
 class Llama(nn.Module):
     """``forward(tokens [B, T]) -> logits [B, T, V]``; with ``targets``,
@@ -468,9 +505,10 @@ class Llama(nn.Module):
                     module.reset_parameters(g)
             nn.init.normal_(self.lm_head, 0.0, 0.02, generator=g)
 
-    def forward(self, tokens, *, targets=None, decode: bool = False):
+    def forward(self, tokens, *, targets=None, decode: bool = False, positions=None,
+                kv_valid=None, cache_slots=None, cache=None):
         if decode:
-            raise not_ported("Llama decode (apply_rope_at and the GQA KV cache)")
+            return self._decode(tokens, positions, kv_valid, cache_slots, cache)
         cfg = self.config
         (wte,) = _gathered((self.wte,), cfg.dtype)
         x = _embed(wte, tokens, _vocab_split(self.wte, 0, _mesh_of(self.wte)))
@@ -491,6 +529,34 @@ class Llama(nn.Module):
                                      vocab_first=False, vocab=vocab)
         logits = x @ w_head
         return logits if vocab is None else collectives.gather_from_group(logits, vocab[0], -1)
+
+
+    def _decode(self, tokens, positions, kv_valid, cache_slots, cache):
+        """Decode mode: ``(logits [B, T, V], cache)``; see the module's
+        docstring."""
+        cfg = self.config
+        if positions is None:
+            raise ValueError("decode=True needs absolute positions")
+        if cache is None:
+            raise ValueError("decode=True needs a cache (generation.init_cache)")
+        whole_params_only(self)
+        mask, slots, offset = decode_mask(cache, tokens.shape, kv_valid, cache_slots)
+        rope = self._rope_tables()
+        x = self.wte.to(cfg.dtype)[tokens]
+        for block, layer in zip(self.blocks, cache["layers"]):
+            x = block.decode(x, layer, mask, slots, offset, positions, rope)
+        advance_cache(cache, tokens.shape[1], slots)
+        return self.norm_f(x) @ self.lm_head.to(cfg.dtype), cache
+
+    def _rope_tables(self):
+        """(cos, sin) of every position below ``max_seq_len`` on the model's
+        device, made once (the JAX model makes them in each traced call)."""
+        key = str(self.device)
+        tables = self.__dict__.setdefault("_decode_rope", {})
+        if key not in tables:
+            cfg = self.config
+            tables[key] = rope_tables(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, self.device)
+        return tables[key]
 
 
 def llama_loss(logits, targets, aux_weight: float = 0.01):

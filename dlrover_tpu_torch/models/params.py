@@ -16,6 +16,10 @@ process's blocks, each at its mesh coordinate as the JAX
 ``state_shardings`` splits the leaf (``parallel/sharding.py``), and this
 process's blocks become the whole tree again by gathering every process's
 (a collective).
+
+:func:`cache_from_flax` and :func:`cache_to_flax` carry a decode cache
+across: the JAX models' ``"cache"`` collection and the port's explicit
+cache (``models/gpt.py``).
 """
 
 from typing import Dict, Iterable, Mapping, Tuple
@@ -172,3 +176,36 @@ def pipeline_params_to_jax(params: Mapping[str, torch.Tensor], mesh=None) -> Dic
     flat = {k: (t if mesh is None else gather_full(t, mesh)).detach().cpu().numpy()
             for k, t in params.items()}
     return unflatten_params(flat)
+
+
+# -- the decode cache -----------------------------------------------------------
+
+_CACHE_ATTN = {"gpt": "CausalSelfAttention_0", "llama": "LlamaAttention_0"}
+
+
+def cache_from_flax(tree: Mapping, device=None) -> Dict:
+    """The port's decode cache (``gpt.empty_cache``'s structure) for the JAX
+    ``"cache"`` collection (nested dicts of numpy arrays, or anything
+    ``np.asarray`` takes): ``block_{i}/<attention>/{k, v[, k_scale,
+    v_scale], index}``. The port keeps one write index; it is layer 0's.
+    Arrays are copied; ``device`` defaults to the CPU."""
+    layers, i = [], 0
+    while f"block_{i}" in tree:
+        block = tree[f"block_{i}"]
+        attn = block[next(name for name in _CACHE_ATTN.values() if name in block)]
+        layers.append({k: torch.from_numpy(np.array(v)).to(device)
+                       for k, v in attn.items() if k != "index"})
+        i += 1
+    index = int(np.asarray(tree["block_0"][next(n for n in _CACHE_ATTN.values()
+                                                if n in tree["block_0"])]["index"]))
+    return {"index": index, "layers": layers}
+
+
+def cache_to_flax(cache: Mapping, family: str = "gpt") -> Dict:
+    """The JAX ``"cache"`` collection (nested dicts of numpy arrays) of the
+    port's decode cache, for the ``family`` ("gpt" or "llama") whose
+    attention module names it; every layer carries the shared index."""
+    attn = _CACHE_ATTN[family]
+    return {f"block_{i}": {attn: {**{k: t.detach().cpu().numpy() for k, t in layer.items()},
+                                  "index": np.asarray(cache["index"], np.int32)}}
+            for i, layer in enumerate(cache["layers"])}

@@ -20,6 +20,8 @@ import torch
 from dlrover_tpu.models import gpt as jgpt
 from dlrover_tpu_torch.models import gpt as tgpt
 from dlrover_tpu_torch.models.params import params_from_flax, params_to_flax
+from dlrover_tpu_torch.parallel.mesh import Mesh
+from dlrover_tpu_torch.parallel.sharding import shard_model
 
 torch.set_num_threads(2)
 
@@ -156,8 +158,10 @@ def test_remat_gives_the_same_grads(impl):
 def test_unported_paths_raise():
     _, tcfg = _configs("f32")
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="decode"):
-        tgpt.GPT(tcfg, device="cpu")(tokens, decode=True)
+    model = tgpt.GPT(tcfg, device="cpu")
+    shard_model(model, Mesh(dict(dp=1, fsdp=1, ep=1, tp=2, sp=1, pp=1), rank=1))
+    with pytest.raises(NotImplementedError, match="decode on a mesh"):
+        model(tokens, decode=True, positions=tokens, cache=tgpt.empty_cache(tcfg, 1, 4, "cpu"))
     with pytest.raises(NotImplementedError, match="dots"):
         tgpt.GPT(dataclasses.replace(tcfg, use_remat=True, remat_policy="dots"), device="cpu")
     with pytest.raises(ValueError, match="ce_chunk"):
@@ -165,6 +169,30 @@ def test_unported_paths_raise():
                                torch.zeros(1, 6, dtype=torch.long), 4, True)
     with pytest.raises(ValueError, match="cross_entropy_loss"):
         tgpt.token_loss_mean(torch.zeros(1, 4, 3), torch.zeros(1, 4, dtype=torch.long))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["exact", "int8"])
+def test_decode_steps_give_the_full_forwards_logits(int8):
+    """Decode mode, which raised before it was ported: a prefill of a
+    prompt and one-token steps on the cache give the logits of the forward
+    without a cache at the same positions (fp32; the int8 cache within its
+    quantization's reach)."""
+    _, tcfg = _configs("f32", kv_cache_int8=int8)
+    model = tgpt.GPT(tcfg, device="cpu", seed=2)
+    tokens = torch.from_numpy(_tokens(seed=3, shape=(2, 12))[0]).long()
+    with torch.no_grad():
+        want = model(tokens)
+    cache = tgpt.empty_cache(tcfg, 2, tcfg.num_heads, "cpu")
+    positions = torch.arange(12)[None].expand(2, 12)
+    got, cache = model(tokens[:, :8], decode=True, positions=positions[:, :8], cache=cache)
+    steps = [got]
+    for t in range(8, 12):
+        out, cache = model(tokens[:, t:t + 1], decode=True, positions=positions[:, t:t + 1],
+                           cache=cache)
+        steps.append(out)
+    assert cache["index"] == 12
+    tol = 5e-2 if int8 else FP32_ATOL
+    torch.testing.assert_close(torch.cat(steps, 1), want, atol=tol, rtol=0)
 
 
 def test_ring_attention_on_one_process_is_dense_attention():

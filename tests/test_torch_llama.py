@@ -34,6 +34,8 @@ from dlrover_tpu_torch.examples import llama_moe
 from dlrover_tpu_torch.models import gpt as tgpt
 from dlrover_tpu_torch.models import llama as tllama
 from dlrover_tpu_torch.models.params import params_from_flax, params_to_flax
+from dlrover_tpu_torch.parallel.mesh import Mesh
+from dlrover_tpu_torch.parallel.sharding import shard_model
 
 torch.set_num_threads(2)
 
@@ -343,13 +345,40 @@ def test_a_dense_model_has_no_aux_terms():
 
 
 def test_decode_raises_not_ported():
+    """Decode runs on whole parameters: a model placed on a mesh raises
+    ``not_ported`` in decode mode (serving on a mesh is not ported)."""
     _, tcfg = _configs("f32")
     model = tllama.Llama(tcfg, device="cpu")
+    shard_model(model, Mesh(dict(dp=1, fsdp=2, ep=1, tp=1, sp=1, pp=1), rank=0))
     tokens = torch.from_numpy(_tokens()[0]).long()
+    cache = tgpt.empty_cache(tcfg, tokens.shape[0], tcfg.num_kv_heads, "cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        model(tokens, decode=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        model.blocks[0].attn(torch.zeros(2, 32, 32), decode=True)
+        model(tokens, decode=True, positions=tokens, cache=cache)
+
+
+@pytest.mark.parametrize("variant", ["dense", "moe"])
+def test_decode_steps_give_the_full_forwards_logits(variant):
+    """Decode mode, which raised before it was ported: RoPE at absolute
+    positions over the KVH-narrow cache gives the forward's logits without
+    a cache (fp32). The MoE computes each call's tokens as the JAX MoE does,
+    with a capacity from the call's length, so it is held to the forward at
+    a capacity factor that drops no token in either (2 for 4 experts, top-2;
+    ``tests/test_torch_generation.py`` holds it to the JAX decode)."""
+    over = dict(VARIANTS[variant], capacity_factor=2.0) if variant == "moe" else {}
+    _, tcfg = _configs("f32", **over)
+    model = tllama.Llama(tcfg, device="cpu", seed=2)
+    tokens = torch.from_numpy(_tokens(seed=3)[0]).long()[:, :12]
+    with torch.no_grad():
+        want = model(tokens)
+    cache = tgpt.empty_cache(tcfg, 2, tcfg.num_kv_heads, "cpu")
+    assert tuple(cache["layers"][0]["k"].shape)[2] == tcfg.num_kv_heads < tcfg.num_heads
+    positions = torch.arange(12)[None].expand(2, 12)
+    steps = []
+    for t in range(12):
+        out, cache = model(tokens[:, t:t + 1], decode=True, positions=positions[:, t:t + 1],
+                           cache=cache)
+        steps.append(out)
+    torch.testing.assert_close(torch.cat(steps, 1), want, atol=FP32_ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("variant", ["dense", "moe"])

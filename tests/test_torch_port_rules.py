@@ -35,7 +35,7 @@ _POISON = (
 _SCRIPTS = [os.path.join(_REPO, "chip_smoke.py")] + [
     os.path.join(_REPO, "scripts", name)
     for name in ("torch_step_profile.py", "kernel_ab.py", "ckpt_overhead.py",
-                 "first_step_split.py")
+                 "first_step_split.py", "serve_phase.py")
 ]
 
 
@@ -150,6 +150,48 @@ def test_the_scans_cover_the_sp_slice():
     assert '"sp2_tp2"' in script and '"llama_sp2"' in script
 
 
+def test_the_scans_cover_the_serving_slice():
+    names = set(_module_names())
+    for module in ("common.http", "attribution", "attribution.phases", "models.generation",
+                   "models.serving", "launcher.serve"):
+        assert f"dlrover_tpu_torch.{module}" in names
+    # phase 14 of chip_smoke.py is in the scanned script
+    assert "def serve_phase" in open(_SCRIPTS[0]).read()
+
+
+def test_the_serving_command_answers_with_jax_poisoned(tmp_path):
+    """``tpurun-serve-torch --cpu`` in a process where JAX, the JAX package,
+    msgpack and grpc cannot be imported: it listens, answers a completion
+    and stops on SIGTERM with exit 0."""
+    import http.client
+    import signal
+    import time
+
+    out = tmp_path / "serve.out"
+    code = (_POISON + "from dlrover_tpu_torch.launcher import serve\n"
+            "sys.exit(serve.main(['--cpu', '--port', '0', '--batch-size', '2', "
+            "'--prompt-width', '8', '--max-new-tokens', '4', '--temperature', '0']))\n")
+    env = {**os.environ, "PYTHONPATH": _REPO}
+    with open(out, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-c", code], cwd=_REPO, stdout=f,
+                                stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        deadline = time.monotonic() + 120
+        while "serve {" not in out.read_text() and proc.poll() is None:
+            assert time.monotonic() < deadline, "the server did not come up"
+            time.sleep(0.1)
+        port = json.loads(out.read_text().split("serve ", 1)[1].splitlines()[0])["port"]
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("POST", "/v1/completions", body=json.dumps({"prompt": [5, 9, 2]}))
+        answer = json.loads(conn.getresponse().read())
+        conn.close()
+        assert len(answer["tokens"]) == 4
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=60)
+    assert proc.returncode == 0, err
+
+
 def test_the_llama_example_runs_with_jax_poisoned():
     """The MoE example trains its 30 tiny steps on the CPU in a process
     where JAX and the JAX package cannot be imported."""
@@ -253,6 +295,11 @@ def test_the_warm_spare_preloads_and_hands_off_with_jax_grpc_and_msgpack_poisone
         ("parallel/pipeline.py", "dlrover_tpu/parallel/pipeline.py"),
         ("parallel/replan.py", "dlrover_tpu/parallel/replan.py"),
         ("models/gpt_pipeline.py", "dlrover_tpu/models/gpt_pipeline.py"),
+        ("common/http.py", "dlrover_tpu/common/http.py"),
+        ("attribution/phases.py", "dlrover_tpu/attribution/phases.py"),
+        ("models/generation.py", "dlrover_tpu/models/generation.py"),
+        ("models/serving.py", "dlrover_tpu/models/serving.py"),
+        ("launcher/serve.py", "dlrover_tpu/launcher/serve.py"),
     ] + [
         (f"{m}.py", f"dlrover_tpu/{m}.py")
         for m in ("common/log", "common/constants", "common/config", "common/multi_process",
